@@ -8,22 +8,36 @@ before the result line):
 
 1. card: name and power limit, as ``nvidia-smi`` reports them;
 2. build: ``nvcc`` compiles ``kernels/segment_sum/csrc/segment_sum.cu``
-   for sm_90a; the build time and ptxas's register report;
+   and ``kernels/hash_join/csrc/hash_probe.cu`` for sm_90a, in parallel;
+   the build times and ptxas's register reports;
 3. kernels: each CUDA kernel against its plain PyTorch version on the
-   card, at the slice's shapes (n = 6,001,215 rows; S = 4 as in Q1 and
-   S = 1.5M as in Q18), over int8/int32/int64/float32/float64 with
-   invalid lanes, out-of-range ids, NaNs, empty segments and tied
-   ``±0.0``. Integers, counts and MIN/MAX must match bit for bit (the
-   sign of a zero included); float sums within the tolerance below, and
-   bitwise across two launches. Times of the kernel, the plain version
-   and one PyTorch library call, and the bound;
+   card, at the slice's shapes. The segment kernels at n = 6,001,215
+   rows, S = 4 as in Q1 and S = 1.5M as in Q18, over
+   int8/int32/int64/float32/float64 with invalid lanes, out-of-range
+   ids, NaNs, empty segments and tied ``±0.0``: integers, counts and
+   MIN/MAX bit for bit (the sign of a zero included), float sums within
+   the tolerance below and bitwise across two launches. The probe
+   kernels at n = 6,001,215 and n = 1,500,000 lanes into a table of
+   T = 2^23 slots, with out-of-range lanes (negative, >= T, the int32
+   sentinel), empty slots, duplicate keys and masked lanes, bit for bit;
+   and n = 0, T = 0. Times of the kernel, the plain version and one
+   PyTorch library call, and the bound;
 4. slice: TPC-H SF ``--sf`` generated from ``--seed``, run through
-   ``Client.run`` on the default backend (``torch`` on ``cuda``); both
-   kernels must have launched; every published table must match the
-   port's ``vectorized`` backend (integers, counts, MIN/MAX and
-   validity exactly, float SUM/MEAN to rtol 1e-9); a rerun with
-   ``cache=False`` must reproduce every fingerprint; at SF 0.01 the
-   ``reference`` backend must match too.
+   ``Client.run`` on the default backend (``torch_auto`` on ``cuda``);
+   both segment kernels and ``hash_probe`` (Q18's outer join) must have
+   launched; every published table must match the port's ``vectorized``
+   backend (integers, counts, MIN/MAX and validity exactly, float
+   SUM/MEAN to rtol 1e-9); a rerun with ``cache=False`` must reproduce
+   every fingerprint; at SF 0.01 the ``reference`` backend must match
+   too;
+5. queries: two SQL queries through ``Client.sql`` on the same catalog,
+   with the default optimizer passes: lineitem joined to orders and
+   grouped by customer, then the same with a WHERE on lineitem that
+   ``filter_pushdown`` and ``probe_fusion`` turn into a filter-fused
+   probe. ``hash_probe`` and ``masked_hash_probe`` must have launched,
+   EXPLAIN must show the fusion, and each result must equal the query on
+   ``vectorized``, the unoptimized plan and a ``cache=False`` rerun
+   (fingerprints); at SF 0.01 the ``reference`` backend must match.
 
 The last two lines of standard output are one JSON object of the
 kernels' numbers, then ``{"ok": true, "device": {...}}``.
@@ -36,6 +50,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
@@ -55,8 +70,21 @@ REPLACES = {
         "src/repro/kernels/segment_sum/kernel.py:59"),
     "masked_segment_reduce": (
         "src/repro/kernels/segment_sum/kernel.py:146"),
+    "hash_probe": "src/repro/kernels/hash_join/kernel.py:94",
+    "masked_hash_probe": "src/repro/kernels/hash_join/kernel.py:146",
 }
-SOURCE = "src/repro_torch/kernels/segment_sum/csrc/segment_sum.cu"
+SOURCES = {
+    "masked_segment_sum":
+        "src/repro_torch/kernels/segment_sum/csrc/segment_sum.cu",
+    "masked_segment_reduce":
+        "src/repro_torch/kernels/segment_sum/csrc/segment_sum.cu",
+    "hash_probe": "src/repro_torch/kernels/hash_join/csrc/hash_probe.cu",
+    "masked_hash_probe":
+        "src/repro_torch/kernels/hash_join/csrc/hash_probe.cu",
+}
+PROBE_SLOTS = 1 << 23           # the SF1 orderkey span, to a power of two
+Q18_JOIN_LANES = 1_500_000      # Q18's outer join probes one lane per order
+INT32_MAX = 2**31 - 1           # the partitioned join's sentinel
 
 
 def log(msg: str) -> None:
@@ -237,6 +265,139 @@ def h2d_ms(torch, np) -> float:
 
 
 # ---------------------------------------------------------------------------
+# phase 3, continued: the probe kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def probe_inputs(torch, n: int, order: str, g):
+    """A direct-address table as the partitioned join builds it, from
+    1.5M build keys over PROBE_SLOTS slots (a tenth of them repeated, so
+    some slots hold duplicates and most stay empty), and n probe lanes:
+    hits (ascending when ``order`` is "clustered", as l_orderkey probes
+    orders; shuffled when "random"), 10% on random slots (mostly empty),
+    1% each negative, >= T and the int32 sentinel; a mask keeping half
+    the lanes."""
+    dev = DEVICE
+    t = PROBE_SLOTS
+    m = Q18_GROUPS
+    keys = torch.randint(0, t, (m,), generator=g, device=dev,
+                         dtype=torch.int32)
+    dup = torch.rand(m, generator=g, device=dev) < 0.1
+    keys[dup] = keys.roll(1)[dup]
+    counts = torch.bincount(keys.long(), minlength=t).to(torch.int32)
+    srt, _ = torch.sort(keys)
+    starts = torch.full((t,), m, dtype=torch.int32, device=dev)
+    starts.scatter_reduce_(0, srt.long(),
+                           torch.arange(m, dtype=torch.int32, device=dev),
+                           reduce="amin")
+    pick = torch.randint(0, m, (n,), generator=g, device=dev)
+    if order == "clustered":
+        pick, _ = torch.sort(pick)
+    slots = srt[pick]
+    r = torch.rand(n, generator=g, device=dev)
+    spots = torch.randint(0, t, (n,), generator=g, device=dev,
+                          dtype=torch.int32)
+    slots = torch.where(r < 0.10, spots, slots)
+    slots = torch.where((r >= 0.10) & (r < 0.11), -1 - spots, slots)
+    slots = torch.where((r >= 0.11) & (r < 0.12), t + spots, slots)
+    slots = torch.where((r >= 0.12) & (r < 0.13),
+                        torch.full_like(slots, INT32_MAX), slots)
+    mask = torch.rand(n, generator=g, device=dev) < 0.5
+    return starts, counts, slots.contiguous(), mask
+
+
+def check_probe(torch, kernel, ops, ref, masked: bool, n: int, order: str,
+                g):
+    """One probe case: bit-for-bit parity, the lanes it must cover, and
+    times."""
+    name = "masked_hash_probe" if masked else "hash_probe"
+    log(f"kernel check: {name} n={n} T={PROBE_SLOTS} {order}")
+    ts, tc, slots, mask = probe_inputs(torch, n, order, g)
+    if masked:
+        call = lambda: ops.masked_hash_probe(ts, tc, slots, mask)
+        alone = lambda: kernel.masked_hash_probe(ts, tc, slots, mask)
+        plain = lambda: ref.masked_hash_probe_ref(ts, tc, slots, mask)
+    else:
+        call = lambda: ops.hash_probe(ts, tc, slots)
+        alone = lambda: kernel.hash_probe(ts, tc, slots)
+        plain = lambda: ref.hash_probe_ref(ts, tc, slots)
+    (gs, gc), (ws, wc) = call(), plain()
+    torch.cuda.synchronize()
+    expect(torch.equal(gs, ws) and torch.equal(gc, wc), name, n, order,
+           "differs from its plain version")
+    inr = (slots >= 0) & (slots < PROBE_SLOTS)
+    live = inr & mask if masked else inr
+    expect(bool((gc[~live] == 0).all()) and bool((gs[~live] == 0).all()),
+           name, "a dead lane (out of range or masked) is not (0, 0)")
+    expect(bool((~inr).any()) and bool((slots == INT32_MAX).any())
+           and bool((gc[live] == 0).any()) and bool((gc > 1).any()),
+           name, "the inputs miss out-of-range, sentinel, empty-slot or "
+           "duplicate lanes")
+    err = float(max((gs - ws).abs().max(), (gc - wc).abs().max()))
+
+    def library():     # two gathers at clamped slots plus a where
+        ok = live
+        idx = slots.clamp(0, PROBE_SLOTS - 1)
+        return (torch.where(ok, ts.index_select(0, idx), 0),
+                torch.where(ok, tc.index_select(0, idx), 0))
+
+    # bytes this run needs: every lane's 8 output bytes, the slot of
+    # every lane that reads one (all, or the kept ones), the mask, and
+    # 8 table bytes per distinct slot the live lanes touch
+    reads = int(mask.sum()) if masked else n
+    touched = int(torch.unique(slots[live]).numel())
+    nbytes = 8 * n + 4 * reads + (n if masked else 0) + 8 * touched
+    return {
+        "op": name, "n": n, "T": PROBE_SLOTS, "order": order,
+        "max_abs_err": err, "ms": cuda_ms(torch, call),
+        "kernel_only_ms": cuda_ms(torch, alone),
+        "plain_ms": cuda_ms(torch, plain, reps=3),
+        "library_ms": cuda_ms(torch, library, reps=3),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "bound_bytes": nbytes,
+    }
+
+
+def probe_edges(torch, ops, ref) -> None:
+    """n = 0 lanes, and a table of T = 0 slots, on the card."""
+    dev = DEVICE
+    empty = torch.zeros(0, dtype=torch.int32, device=dev)
+    table = torch.arange(8, dtype=torch.int32, device=dev)
+    slots = torch.tensor([-1, 0, 7, 8, INT32_MAX], dtype=torch.int32,
+                         device=dev)
+    keep = torch.tensor([True, False, True, True, True], device=dev)
+    cases = [
+        ("n=0", lambda f: f(table, table, empty)),
+        ("T=0", lambda f: f(empty, empty, slots)),
+        ("T=8", lambda f: f(table, table + 1, slots)),
+    ]
+    for label, run in cases:
+        for got, want in ((run(ops.hash_probe), run(ref.hash_probe_ref)),
+                          (run(lambda a, b, c: ops.masked_hash_probe(
+                              a, b, c, keep[:len(c)])),
+                           run(lambda a, b, c: ref.masked_hash_probe_ref(
+                               a, b, c, keep[:len(c)])))):
+            torch.cuda.synchronize()
+            expect(all(torch.equal(x, y) for x, y in zip(got, want)),
+                   "probe edge case", label, got, want)
+    log("kernel check: probe edge cases n=0, T=0 and T=8 match")
+
+
+def phase_probe_kernels(torch):
+    from repro_torch.kernels.hash_join import kernel, ops, ref
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(1)
+    probe_edges(torch, ops, ref)
+    rows = []
+    for n, order in ((N_ROWS, "clustered"), (N_ROWS, "random"),
+                     (Q18_JOIN_LANES, "clustered")):
+        for masked in (False, True):
+            row = check_probe(torch, kernel, ops, ref, masked, n, order, g)
+            rows.append(row)
+            log("kernel " + json.dumps(row))
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the slice
 # ---------------------------------------------------------------------------
 
@@ -268,7 +429,7 @@ def run_pipeline(data, backend=None, *, cache=True):
     return tables, pl._runtime, wall
 
 
-def assert_same(np, got, want, label: str) -> None:
+def assert_same(np, got, want, label: str, floats=FLOAT_AGGS) -> None:
     expect(sorted(got) == sorted(want), label)
     for name in got:
         a, b = got[name], want[name]
@@ -278,7 +439,7 @@ def assert_same(np, got, want, label: str) -> None:
             expect(np.array_equal(a.validity(c), b.validity(c)),
                    label, name, c)
             x, y = a.column(c), b.column(c)
-            if c in FLOAT_AGGS:
+            if c in floats:
                 np.testing.assert_allclose(x, y, rtol=1e-9, atol=0,
                                            err_msg=f"{label} {name}.{c}")
             elif x.dtype == object:
@@ -288,35 +449,47 @@ def assert_same(np, got, want, label: str) -> None:
                 expect(x.tobytes() == y.tobytes(), label, name, c)
 
 
-def phase_slice(torch, np, sf: float, seed: int):
+def wrappers():
+    """The four kernel wrappers of the main path, by kernel name."""
+    from repro_torch.kernels.hash_join import ops as hops
+    from repro_torch.kernels.segment_sum import ops as sops
+    return {"masked_segment_sum": sops.masked_segment_sum,
+            "masked_segment_reduce": sops.masked_segment_reduce,
+            "hash_probe": hops.hash_probe,
+            "masked_hash_probe": hops.masked_hash_probe}
+
+
+def reset_launches() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
+def phase_slice(torch, np, data, seed: int):
     from repro_torch import exec as exec_backends
     from repro_torch.examples.tpch import generate
-    from repro_torch.kernels.segment_sum import ops
 
-    t0 = time.perf_counter()
-    data = generate(sf, seed)
-    log(f"slice data: sf={sf} seed={seed} rows="
-        f"{ {k: len(next(iter(v.values()))) for k, v in data.items()} } "
-        f"generated in {time.perf_counter() - t0:.2f} s")
-    expect(exec_backends.active_backend().name == "torch",
-           "the default backend is not torch")
+    expect(exec_backends.active_backend().name == "torch_auto",
+           "the default backend is not torch_auto")
     log(f"slice backend: {exec_backends.active_backend().cache_token()}")
 
-    ops.masked_segment_sum.launches = 0
-    ops.masked_segment_reduce.launches = 0
+    reset_launches()
     tables, runtime, wall = run_pipeline(data)
-    launches = {"masked_segment_sum": ops.masked_segment_sum.launches,
-                "masked_segment_reduce": ops.masked_segment_reduce.launches}
+    launches = read_launches()
     log(f"slice launches: {json.dumps(launches)}")
-    expect(all(n > 0 for n in launches.values()),
+    need = ("masked_segment_sum", "masked_segment_reduce", "hash_probe")
+    expect(all(launches[k] > 0 for k in need),
            "a kernel of the path never launched", launches)
-    log(f"slice torch run: wall_s={wall:.3f}")
+    log(f"slice torch_auto run: wall_s={wall:.3f}")
     for name, rec in sorted(runtime.items()):
         log(f"slice node {name}: wall_s={rec['wall_s']:.3f} "
             f"rows_out={rec['rows_out']} cache={rec['cache']}")
 
     host, _, host_wall = run_pipeline(data, "vectorized")
-    assert_same(np, tables, host, "torch vs vectorized")
+    assert_same(np, tables, host, "torch_auto vs vectorized")
     log(f"slice vectorized run: wall_s={host_wall:.3f}; tables match")
 
     again, _, again_wall = run_pipeline(data, cache=False)
@@ -330,13 +503,151 @@ def phase_slice(torch, np, sf: float, seed: int):
     small = generate(0.01, seed)
     t_small, _, _ = run_pipeline(small)
     assert_same(np, t_small, run_pipeline(small, "vectorized")[0],
-                "sf0.01 torch vs vectorized")
+                "sf0.01 torch_auto vs vectorized")
     assert_same(np, t_small, run_pipeline(small, "reference")[0],
-                "sf0.01 torch vs reference")
-    log("slice sf0.01: torch matches vectorized and reference")
+                "sf0.01 torch_auto vs reference")
+    log("slice sf0.01: torch_auto matches vectorized and reference")
     for name, t in sorted(tables.items()):
         log(f"slice table {name}: rows={len(t)} fp={t.fingerprint()}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the query path
+# ---------------------------------------------------------------------------
+
+QUERY = ("SELECT o_custkey, SUM(l_quantity) AS qty, "
+         "SUM(l_extendedprice) AS revenue, COUNT(l_quantity) AS n_lines "
+         "FROM lineitem JOIN orders ON l_orderkey = o_orderkey "
+         "{where}GROUP BY o_custkey")
+QUERIES = {      # label -> (query, the probe kernel it must reach)
+    "join": (QUERY.format(where=""), "hash_probe"),
+    "join_where": (QUERY.format(where="WHERE l_discount >= 0.05 "),
+                   "masked_hash_probe"),
+}
+QUERY_FLOATS = {"revenue"}
+
+
+def sql_client(data):
+    from repro_torch.core.runner import Client
+    from repro_torch.data.tables import Table
+    client = Client()
+    for name, cols in data.items():
+        client.write_source_table("main", name, Table(cols))
+    return client
+
+
+def run_query(client, query: str, backend=None, **kw):
+    import torch
+    from repro_torch.exec import use_backend
+    t0 = time.perf_counter()
+    if backend is None:
+        result = client.sql(query, **kw)
+    else:
+        with use_backend(backend):
+            result = client.sql(query, **kw)
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0
+
+
+def find_join(op):
+    from repro_torch.core.logical import Join
+    if isinstance(op, Join):
+        return op
+    for child in op.children():
+        found = find_join(child)
+        if found is not None:
+            return found
+    return None
+
+
+def phase_queries(torch, np, data, seed: int):
+    from repro_torch.examples.tpch import generate
+    from repro_torch.exec.partitioned import PartitionedBackend
+
+    client = sql_client(data)
+    launches = {}
+    for label, (query, probe) in QUERIES.items():
+        reset_launches()
+        result, wall = run_query(client, query)
+        got = read_launches()
+        launches[label] = got
+        log(f"query {label}: launches {json.dumps(got)}")
+        expect(got[probe] > 0, label, probe, "never launched", got)
+        log(f"query {label} torch_auto: wall_s={wall:.3f} "
+            f"rows={len(result.table)} executed={result.executed}")
+        for name, rec in sorted(result.plan._runtime.items()):
+            log(f"query {label} node {name}: wall_s={rec['wall_s']:.3f} "
+                f"rows_out={rec['rows_out']}")
+        explain = result.describe(analyze=True)
+        for line in explain.splitlines():
+            log(f"query {label} explain: {line}")
+        join = find_join(result.plan.steps[-1].logical)
+        log(f"query {label} join: {join.describe()}")
+        if label == "join_where":
+            expect("probe_fusion: fused" in explain, label,
+                   "EXPLAIN shows no probe_fusion rewrite")
+            expect(join.left_pred is not None and join.right_pred is None
+                   and join.left.scan_tables() == {"lineitem"}, label,
+                   "the WHERE is not fused into the lineitem probe side")
+        want = {"q": result.table}
+        host, host_wall = run_query(client, query, "vectorized",
+                                    cache=False)
+        assert_same(np, want, {"q": host.table},
+                    f"{label} torch_auto vs vectorized", QUERY_FLOATS)
+        raw, raw_wall = run_query(client, query, optimizer_passes=(),
+                                  cache=False)
+        assert_same(np, want, {"q": raw.table},
+                    f"{label} optimized vs unoptimized", QUERY_FLOATS)
+        again, again_wall = run_query(client, query, cache=False)
+        expect(again.fingerprint() == result.fingerprint(), label,
+               "cache=False rerun changed the fingerprint")
+        log(f"query {label}: vectorized wall_s={host_wall:.3f}, "
+            f"unoptimized wall_s={raw_wall:.3f}, cache=False rerun "
+            f"wall_s={again_wall:.3f}; all match; fingerprint "
+            f"{result.fingerprint()}")
+
+    small = sql_client(generate(0.01, seed))
+    for label, (query, _) in QUERIES.items():
+        want = {"q": run_query(small, query, "reference")[0].table}
+        for be in (None, PartitionedBackend(device=DEVICE)):
+            got = run_query(small, query, be, cache=False)[0]
+            assert_same(np, {"q": got.table}, want,
+                        f"sf0.01 {label} {be or 'torch_auto'} vs reference",
+                        QUERY_FLOATS)
+    log("query sf0.01: torch_auto and partitioned match reference")
+    return launches
+
+
+def build_all(args):
+    """Build both kernel libraries at once (one nvcc each) and report
+    what ptxas says of each kernel."""
+    from repro_torch.kernels.hash_join import kernel as hkernel
+    from repro_torch.kernels.segment_sum import kernel as skernel
+
+    def timed(mod):
+        t0 = time.perf_counter()
+        lib, report = mod.build(ptxas_report=True)
+        return lib, report, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        built = list(pool.map(timed, (skernel, hkernel)))
+    for lib, report, secs in built:
+        regs = [line.strip() for line in report.splitlines()
+                if "registers" in line]
+        spills = [line.strip() for line in report.splitlines()
+                  if "spill" in line
+                  and " 0 bytes spill stores" not in line]
+        most = max((int(r.split("Used ")[1].split()[0]) for r in regs),
+                   default=0)
+        log(f"build: {lib.name} in {secs:.1f} s; {len(regs)} kernels; "
+            f"max registers {most}; spilling: {spills or 'none'}")
+        if args.log_dir:
+            os.makedirs(args.log_dir, exist_ok=True)
+            stem = lib.name.split("-")[0]
+            with open(os.path.join(args.log_dir, f"ptxas-{stem}.txt"),
+                      "w") as f:
+                f.write(report)
 
 
 def main() -> int:
@@ -344,7 +655,7 @@ def main() -> int:
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-dir", default=None,
-                    help="also write ptxas's report and the kernel table "
+                    help="also write ptxas's reports and the kernel table "
                          "here")
     args = ap.parse_args()
 
@@ -356,11 +667,12 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
-        from repro_torch.kernels.segment_sum import kernel
+        import repro_torch.kernels.build  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: the port is not in this checkout ({e})",
               file=sys.stderr)
         return 1
+    from repro_torch.examples.tpch import generate
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -371,33 +683,27 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     # 2. build
-    t0 = time.perf_counter()
-    lib, report = kernel.build(ptxas_report=True)
-    build_s = time.perf_counter() - t0
-    regs = [line.strip() for line in report.splitlines()
-            if "registers" in line]
-    spills = [line.strip() for line in report.splitlines()
-              if "spill" in line and " 0 bytes spill stores" not in line]
-    log(f"build: {lib.name} in {build_s:.1f} s; {len(regs)} kernels; "
-        f"max registers {max((int(r.split('Used ')[1].split()[0]) for r in regs), default=0)}; "
-        f"spilling: {spills or 'none'}")
-    if args.log_dir:
-        os.makedirs(args.log_dir, exist_ok=True)
-        with open(os.path.join(args.log_dir, "ptxas.txt"), "w") as f:
-            f.write(report)
+    build_all(args)
 
     # 3. kernels
     rows = phase_kernels(torch)
+    probe_rows = phase_probe_kernels(torch)
     copy_ms = h2d_ms(torch, np)
     log(f"h2d copy of one column set (float64 + int32 ids + bool, "
         f"{N_ROWS} rows, pageable): {copy_ms:.3f} ms")
     if args.log_dir:
         with open(os.path.join(args.log_dir, "kernels.jsonl"), "w") as f:
-            for row in rows:
+            for row in rows + probe_rows:
                 f.write(json.dumps(row) + "\n")
 
-    # 4. the slice
-    launches = phase_slice(torch, np, args.sf, args.seed)
+    # 4. the slice, and 5. the query path, on one generated catalog
+    t0 = time.perf_counter()
+    data = generate(args.sf, args.seed)
+    log(f"data: sf={args.sf} seed={args.seed} rows="
+        f"{ {k: len(next(iter(v.values()))) for k, v in data.items()} } "
+        f"generated in {time.perf_counter() - t0:.2f} s")
+    by_path = {"slice": phase_slice(torch, np, data, args.seed)}
+    by_path.update(phase_queries(torch, np, data, args.seed))
 
     main_rows = {   # the heaviest shape each kernel gets on the main path
         "masked_segment_sum": ("sum", "int64", Q18_GROUPS),
@@ -409,8 +715,10 @@ def main() -> int:
                                        r["kind"]) == (op, dt, s, "plain"))
         ops_ = ("sum",) if name == "masked_segment_sum" else ("min", "max")
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name],
+            "launches": sum(p[name] for p in by_path.values()),
+            "launches_by_path": {k: p[name] for k, p in by_path.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows
                                if r["op"] in ops_),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -419,6 +727,22 @@ def main() -> int:
             "kernel_only_ms": row["kernel_only_ms"],
             "shape": f"n={N_ROWS} S={s} {dt} {op}",
             "h2d_ms": copy_ms,
+        })
+    for name in ("hash_probe", "masked_hash_probe"):
+        row = next(r for r in probe_rows if (r["op"], r["n"], r["order"])
+                   == (name, N_ROWS, "clustered"))
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name],
+            "launches": sum(p[name] for p in by_path.values()),
+            "launches_by_path": {k: p[name] for k, p in by_path.items()},
+            "max_abs_err": max(r["max_abs_err"] for r in probe_rows
+                               if r["op"] == name),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "kernel_only_ms": row["kernel_only_ms"],
+            "shape": f"n={N_ROWS} T={PROBE_SLOTS} clustered",
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

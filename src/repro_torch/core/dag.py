@@ -431,11 +431,27 @@ class Pipeline:
         return node
 
     def sql_query(self, *, name: str, query: str):
-        """Not ported yet: SQL nodes need ``repro_torch.sql``, which
-        comes with the slice that ports the SQL front door."""
-        raise NotImplementedError(
-            "Pipeline.sql_query is not ported yet: it waits for the slice "
-            "that ports repro.sql; build the node with Pipeline.sql")
+        """Register a node authored as SQL text (DESIGN.md §13).
+
+        The query is parsed and compiled against everything visible in
+        this pipeline — declared sources plus every node output
+        registered so far — into a :class:`DeclarativeNode` carrying
+        its logical tree, with the output contract *inferred* from the
+        input contracts. Unknown tables/columns are compile-time
+        PlanErrors naming the pipeline, with a nearest-name suggestion.
+        The node then plans, optimizes, caches, and runs exactly like
+        any hand-built declarative node.
+        """
+        # local import: repro_torch.sql depends on this module.
+        from repro_torch.sql.compiler import compile_query
+        schemas: dict[str, type[S.Schema]] = dict(self._source_schemas)
+        for n, other in self._nodes.items():
+            schemas[n] = other.output_schema
+        compiled = compile_query(
+            query, name=name, schemas=schemas,
+            context=f"pipeline {self.name!r}")
+        self.add(compiled.node)
+        return compiled.node
 
     def add(self, node: Node) -> None:
         if node.name in self._nodes or node.name in self._source_schemas:

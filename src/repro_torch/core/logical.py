@@ -193,9 +193,9 @@ class Aggregate(LogicalOp):
         be = exec_backends.resolve(None)
         if self.strategy == "partial":
             try:
-                be = exec_backends.get_backend("sharded")
+                be = exec_backends.get_backend("partitioned")
             except (KeyError, exec_backends.BackendUnavailable):
-                pass    # no mesh on this install; any backend is correct
+                pass    # no card on this install; any backend is correct
         kwargs = {}
         if getattr(be, "accepts_group_stats", False):
             kwargs = {"stats": ts}

@@ -18,6 +18,7 @@ queryable for triage.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Mapping, Sequence
 
@@ -29,7 +30,9 @@ from repro_torch.core.quality import Verifier
 from repro_torch.core.transactions import RunRegistry, RunState, TransactionalRun
 from repro_torch.data.tables import Table
 
-__all__ = ["RunResult", "Client"]
+__all__ = ["RunResult", "QueryResult", "Client"]
+
+_NOOP_CTX = contextlib.nullcontext()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +44,35 @@ class RunResult:
     # nodes re-executed per publication rebase (empty: published on the
     # first CAS attempt). All zeros = every rebase was fully incremental.
     rebase_reexecutions: tuple[int, ...] = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class QueryResult:
+    """Result of one :meth:`Client.sql` query (read-only: no commit).
+
+    ``executed``/``cached`` expose the engine's verdict — a repeated
+    query at the same commit is a pure cache hit (``executed == ()``),
+    because the content-addressed key binds the compiled logical tree
+    to the pinned input snapshots, never to the query text.
+    """
+
+    table: Table
+    plan: "object"                 # the optimized Plan (EXPLAIN source)
+    schema: type                   # inferred output contract
+    snapshot: str                  # content-addressed result snapshot
+    commit_id: str                 # the pinned commit queried
+    query: str
+    executed: tuple[str, ...] = ()
+    cached: tuple[str, ...] = ()
+
+    def describe(self, *, analyze: bool = False) -> str:
+        """EXPLAIN: the optimized plan with query text and rewrite
+        provenance. ``analyze=True`` adds per-step actuals (the query
+        already executed, so runtime is always present here)."""
+        return self.plan.describe(analyze=analyze)
+
+    def fingerprint(self) -> str:
+        return self.table.fingerprint()
 
 
 class Client:
@@ -58,6 +90,11 @@ class Client:
         # shared across this client's runs; persisted via store refs so
         # clients over one (file-backed) store share entries too.
         self.node_cache = NodeCache(self.store)
+        # SQL front door memos, keyed by snapshot: discovered contracts
+        # (manifest-only reads) and row-count stats — so a repeated
+        # query at an unchanged commit touches no column data at all.
+        self._sql_schemas: dict[tuple[str, str], type] = {}
+        self._sql_stats: dict[str, object] = {}
 
     # -- Git-for-data surface (Listing 6) --------------------------------
     def create_branch(self, name: str, from_ref: str = "main", **kw):
@@ -84,14 +121,94 @@ class Client:
         return Table.from_blobs(self.store, snap)
 
     # -- SQL front door (DESIGN.md §13) ------------------------------------
-    def sql(self, query: str, ref: str = "main", **kw):
-        """Not ported yet: the SQL front door needs ``repro_torch.sql``
-        and ``repro_torch.optimizer``, which come with the slice after
-        the partitioned join."""
-        raise NotImplementedError(
-            "Client.sql is not ported yet: it waits for the slice that "
-            "ports repro.sql and repro.optimizer; build declarative "
-            "nodes with Pipeline.sql and run them with Client.run")
+    def _discover_schema(self, table: str, snapshot: str) -> type:
+        from repro_torch.sql.discovery import schema_from_snapshot
+        key = (table, snapshot)
+        if key not in self._sql_schemas:
+            self._sql_schemas[key] = schema_from_snapshot(
+                self.store, snapshot, table)
+        return self._sql_schemas[key]
+
+    def _snapshot_stats(self, snapshot: str):
+        """Row-count stats from one column blob (not the whole table),
+        memoized by snapshot so repeated queries at an unchanged commit
+        never touch column data."""
+        from repro_torch.exec.stats import TableStats
+        if snapshot not in self._sql_stats:
+            manifest = self.store.get_json(snapshot)
+            n = 0
+            for m in manifest["columns"].values():
+                n = len(self.store.get_array(m["values"]))
+                break
+            self._sql_stats[snapshot] = TableStats(n_rows=n)
+        return self._sql_stats[snapshot]
+
+    def sql(self, query: str, ref: str = "main", *,
+            optimizer_passes: "Sequence[str] | None" = None,
+            cache: bool = True) -> QueryResult:
+        """Compile and execute one SQL SELECT against a pinned ref.
+
+        Table discovery happens at ``ref``'s head commit: every catalog
+        table is visible, its contract inferred from the snapshot
+        manifest (dtypes + nullability; no column data is read to
+        compile). Unknown tables/columns are compile-time errors naming
+        the ref, with a nearest-name suggestion. The compiled logical
+        tree flows through the standard pipeline: ``plan()`` with
+        row-count stats, ``optimize()`` (``optimizer_passes=()`` skips
+        optimization; ``None`` = the default passes), the stats-driven
+        ``torch_auto`` backend, and the content-addressed :class:`NodeCache`
+        — so re-running any spelling of the same query at the same
+        commit executes zero nodes. Reads are snapshot-isolated against
+        the resolved commit; nothing is committed.
+        """
+        from repro_torch.core.dag import Pipeline
+        from repro_torch.core.planner import plan as plan_fn
+        from repro_torch.obs import get_recorder
+        from repro_torch.optimizer import optimize
+        from repro_torch.sql.compiler import compile_query
+
+        rec = get_recorder()
+        sql_ctx = (rec.span("sql", ref=ref, query=query)
+                   if rec.enabled else _NOOP_CTX)
+        with sql_ctx as sql_span:
+            commit = self.catalog.head(ref)
+            if sql_span is not None:
+                sql_span.set(commit=commit.id)
+            context = f"ref {ref!r} (commit {commit.id})"
+            schemas = {t: self._discover_schema(t, snap)
+                       for t, snap in commit.tables.items()}
+            name = "query"
+            while name in commit.tables:
+                name += "_"
+            compiled = compile_query(query, name=name, schemas=schemas,
+                                     context=context)
+
+            pipeline = Pipeline("sql")
+            for t in compiled.tables:
+                pipeline.source(t, schemas[t])
+            pipeline.add(compiled.node)
+            stats = {t: self._snapshot_stats(commit.tables[t])
+                     for t in compiled.tables}
+            pl = plan_fn(pipeline, table_stats=stats)
+            if optimizer_passes is None:
+                pl = optimize(pl)
+            elif optimizer_passes:
+                pl = optimize(pl, optimizer_passes)
+
+            engine = PlanExecutor(pl, self.store,
+                                  cache=self.node_cache if cache else None)
+            outcome = engine.execute(commit.tables.__getitem__)
+            snap = outcome.snapshots[name]
+            result = QueryResult(
+                table=Table.from_blobs(self.store, snap),
+                plan=pl, schema=compiled.output_schema, snapshot=snap,
+                commit_id=commit.id, query=query,
+                executed=outcome.executed, cached=outcome.cached)
+            if sql_span is not None:
+                sql_span.set(rows_out=result.table.num_rows,
+                             executed=len(outcome.executed),
+                             cached=len(outcome.cached))
+            return result
 
     def _table_verifier(self, table: str,
                         checks: Sequence[Verifier]

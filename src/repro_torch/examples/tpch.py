@@ -19,8 +19,9 @@ one ``Pipeline``:
   ``orders``, keeping sum_qty > 300 (the customer table is left out).
 
 ``Client.run`` publishes all three on a branch in ONE commit, and the
-branch then merges into ``main``. Group-by aggregation runs on the
-execution backend the caller selects (``torch`` on the card by default).
+branch then merges into ``main``. Group-by aggregation and the join run
+on the execution backend the caller selects (``torch_auto`` on the card
+by default).
 
 The pipeline is built from an ``api`` namespace (schema module,
 ``Pipeline``, ``col``, ``lit``), so a test can build the same pipeline
@@ -222,7 +223,7 @@ def main(argv=None) -> None:
     from repro_torch.core.runner import Client
     from repro_torch.data.tables import Table
     from repro_torch.exec import use_backend
-    from repro_torch.exec.torch_backend import TorchBackend
+    from repro_torch.exec.torch_auto import TorchAutoBackend
 
     t0 = time.perf_counter()
     data = generate(args.sf, args.seed)
@@ -230,7 +231,7 @@ def main(argv=None) -> None:
     for name, cols in data.items():
         client.write_source_table("main", name, Table(cols))
     t1 = time.perf_counter()
-    with use_backend(TorchBackend(device=args.device)):
+    with use_backend(TorchAutoBackend(device=args.device)):
         pl = plan(build_pipeline())
         result = run_slice(client, pl)
     t2 = time.perf_counter()

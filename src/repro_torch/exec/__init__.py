@@ -10,7 +10,11 @@ is swappable:
   differential-testing oracle;
 - ``vectorized`` — numpy factorize/sort kernels;
 - ``torch``      — group-by aggregation in the CUDA segment kernels
-  (``kernels/segment_sum``), on the card. The default.
+  (``kernels/segment_sum``), on the card;
+- ``partitioned`` — ``torch`` plus the hash join on the card, probed
+  through the CUDA hash-probe kernels (``kernels/hash_join``);
+- ``torch_auto`` — statistics-driven per-call selection among the above
+  (exec/torch_auto.py's decision table), on the card. The default.
 
 Selection, in precedence order:
 
@@ -21,7 +25,7 @@ Selection, in precedence order:
    backend). Both take a registered name or a :class:`Backend`
    instance, e.g. ``use_backend(TorchBackend(device="cpu"))``;
 3. environment: ``REPRO_TORCH_EXEC_BACKEND`` at first use;
-4. default: ``torch`` on ``cuda``.
+4. default: ``torch_auto`` on ``cuda``.
 
 The default runs on the card: without CUDA, selecting it raises
 :class:`BackendUnavailable`, naming how to ask for the CPU instead.
@@ -48,7 +52,7 @@ __all__ = [
     "DEFAULT_BACKEND",
 ]
 
-DEFAULT_BACKEND = "torch"
+DEFAULT_BACKEND = "torch_auto"
 
 
 class BackendUnavailable(RuntimeError):
@@ -153,6 +157,18 @@ def _torch_factory() -> Backend:
     return TorchBackend()
 
 
+def _partitioned_factory() -> Backend:
+    from repro_torch.exec.partitioned import PartitionedBackend
+    return PartitionedBackend()
+
+
+def _torch_auto_factory() -> Backend:
+    from repro_torch.exec.torch_auto import TorchAutoBackend
+    return TorchAutoBackend()
+
+
 register("reference", _reference_factory)
 register("vectorized", _vectorized_factory)
 register("torch", _torch_factory)
+register("partitioned", _partitioned_factory)
+register("torch_auto", _torch_auto_factory)

@@ -41,16 +41,17 @@ class TorchBackend(VectorizedBackend):
         device = torch.device(device)
         if device.type == "cuda":
             if not torch.cuda.is_available():
+                cls = type(self).__name__
                 raise BackendUnavailable(
-                    "execution backend 'torch' runs on CUDA, and no CUDA "
-                    "device is available; to run it on the CPU, ask for "
-                    "it: use_backend(TorchBackend(device=\"cpu\")), or "
-                    "select the 'vectorized' backend")
+                    f"execution backend {self.name!r} runs on CUDA, and no "
+                    f"CUDA device is available; to run it on the CPU, ask "
+                    f"for it: use_backend({cls}(device=\"cpu\")), or "
+                    f"select the 'vectorized' backend")
             if device.index is None:
                 device = torch.device("cuda", torch.cuda.current_device())
         elif device.type != "cpu":
-            raise ValueError(f"TorchBackend runs on cuda or cpu, not "
-                             f"{device}")
+            raise ValueError(f"{type(self).__name__} runs on cuda or cpu, "
+                             f"not {device}")
         self.device = device
 
     def cache_token(self) -> str:

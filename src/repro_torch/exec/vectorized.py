@@ -381,8 +381,9 @@ class VectorizedBackend(Backend):
                 # direct-address probe: per-key counts/offsets into the
                 # key-sorted ridx, then O(1) gathers per left row. The
                 # rebased int32 keys also make the stable argsort a
-                # 4-pass radix sort.
-                key_r = (rvv - mn).astype(np.int32)
+                # 4-pass radix sort. Rebased in int64: a narrow dtype
+                # would wrap (int8 keys spanning more than 127).
+                key_r = (rvv.astype(np.int64) - mn).astype(np.int32)
                 order = np.argsort(key_r, kind="stable")
                 ridx = rvalid[order]
                 counts_k = np.bincount(key_r, minlength=span)

@@ -203,9 +203,10 @@ def test_float_sums_repeat_bitwise():
 # ---------------------------------------------------------------------------
 
 def test_registry_names_and_default():
-    assert exec_backends.DEFAULT_BACKEND == "torch"
+    assert exec_backends.DEFAULT_BACKEND == "torch_auto"
     assert set(exec_backends._factories) == {"reference", "vectorized",
-                                             "torch"}
+                                             "torch", "partitioned",
+                                             "torch_auto"}
 
 
 def test_cache_token_names_the_device():
@@ -220,13 +221,14 @@ def test_default_backend_runs_on_cuda_or_raises(monkeypatch):
     monkeypatch.delenv("REPRO_TORCH_EXEC_BACKEND", raising=False)
     if torch.cuda.is_available():
         be = exec_backends.active_backend()
-        assert be.name == "torch" and be.device.type == "cuda"
+        assert be.name == "torch_auto" and be.device.type == "cuda"
         return
     with pytest.raises(BackendUnavailable, match=r'device="cpu"'):
         exec_backends.active_backend()
     with pytest.raises(BackendUnavailable):
         TorchBackend()
-    assert "torch" not in exec_backends.available_backends()
+    assert exec_backends.available_backends() == ["reference",
+                                                  "vectorized"]
 
 
 def test_use_backend_takes_an_instance():

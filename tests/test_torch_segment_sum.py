@@ -8,7 +8,7 @@ MIN/MAX are exact; a float32 SUM compares at rtol 1e-5 (plus atol 1e-5
 for sums near zero), because the two sides add in different orders.
 
 The CUDA kernels themselves run only on the card: their parity tests
-carry the ``cuda`` marker and skip when no CUDA device is present.
+are in ``test_torch_segment_sum_cuda.py``, which needs no JAX.
 """
 import numpy as np
 import pytest
@@ -242,53 +242,3 @@ def test_kernel_wrappers_refuse_cpu_tensors(launch):
 ])
 def test_device_dtypes(dtype, lowers):
     assert device.device_supports_dtype(dtype) is lowers
-
-
-# ---------------------------------------------------------------------------
-# the CUDA kernels against the plain versions (on the card only)
-# ---------------------------------------------------------------------------
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels run only on the card")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.int8, torch.int32, torch.int64,
-                                   torch.float32, torch.float64])
-@pytest.mark.parametrize("op", ["sum", "min", "max"])
-@pytest.mark.parametrize("n,num_segments", [(70_000, 3), (9_000, 2_500),
-                                            (5, 3), (0, 4)])
-def test_cuda_kernel_matches_plain(cuda, dtype, op, n, num_segments):
-    npdt = ref.numpy_dtype(dtype)
-    vals, ids, valid = _case(n, num_segments, npdt, seed=n,
-                             p_nan=0.01 if op != "sum" and
-                             npdt.kind == "f" else 0.0)
-    if npdt.kind == "f":
-        vals[::7] = -0.0
-        vals[::11] = 0.0
-    ids[::53] = -1
-    v, i, m = (torch.from_numpy(x).to(cuda) for x in (vals, ids, valid))
-    if op == "sum":
-        got = ops.masked_segment_sum(v, i, m, num_segments)
-        again = ops.masked_segment_sum(v, i, m, num_segments)
-        want = ref.masked_segment_sum_ref(v.cpu(), i.cpu(), m.cpu(),
-                                          num_segments)
-    else:
-        got = ops.masked_segment_reduce(v, i, m, num_segments, op=op)
-        again = ops.masked_segment_reduce(v, i, m, num_segments, op=op)
-        want = ref.masked_segment_reduce_ref(v.cpu(), i.cpu(), m.cpu(),
-                                             num_segments, op)
-    assert torch.equal(got[1].cpu(), want[1])
-    # bitwise across launches; float SUM against the CPU's sequential
-    # order at rtol 1e-4 (float32) / 1e-12 (float64), atol 1e-3 for sums
-    # near zero; everything else bit for bit
-    assert got[0].cpu().numpy().tobytes() == again[0].cpu().numpy().tobytes()
-    if op == "sum" and npdt.kind == "f":
-        np.testing.assert_allclose(got[0].cpu().numpy(), want[0].numpy(),
-                                   rtol=1e-4 if npdt == np.float32
-                                   else 1e-12, atol=1e-3)
-    else:
-        assert got[0].cpu().numpy().tobytes() == want[0].numpy().tobytes()
