@@ -7,9 +7,10 @@ Phases, each of which must pass (any failure raises and exits non-zero
 before the result line):
 
 1. card: name and power limit, as ``nvidia-smi`` reports them;
-2. build: ``nvcc`` compiles ``kernels/segment_sum/csrc/segment_sum.cu``
-   and ``kernels/hash_join/csrc/hash_probe.cu`` for sm_90a, in parallel;
-   the build times and ptxas's register reports;
+2. build: ``nvcc`` compiles the four CUDA sources for sm_90a, in
+   parallel (``segment_sum.cu``, ``hash_probe.cu``,
+   ``flash_attention.cu``, ``rglru_scan.cu``); the build times and
+   ptxas's register reports;
 3. kernels: each CUDA kernel against its plain PyTorch version on the
    card, at the slice's shapes. The segment kernels at n = 6,001,215
    rows, S = 4 as in Q1 and S = 1.5M as in Q18, over
@@ -37,7 +38,28 @@ before the result line):
    probe. ``hash_probe`` and ``masked_hash_probe`` must have launched,
    EXPLAIN must show the fusion, and each result must equal the query on
    ``vectorized``, the unoptimized plan and a ``cache=False`` rerun
-   (fingerprints); at SF 0.01 the ``reference`` backend must match.
+   (fingerprints); at SF 0.01 the ``reference`` backend must match;
+6. the model stack, recurrentgemma-9b (arXiv:2402.19427 as
+   ``repro_torch/configs/recurrentgemma_9b.py`` configures it: 38 layers,
+   d_model 4096, 16 heads, one kv head, head dim 256, window 2048):
+   a. the flash attention and RG-LRU scan kernels against their plain
+      versions at the prefill's shapes (B=4, S=4096) and edge cases,
+      with times, bounds and the library yardstick;
+   b. ``repro_torch.launch.serve.main`` on the card: the pinned-commit
+      flow at the smoke config, as ``repro``'s launcher runs it;
+   c. the full config, weights drawn on the card from ``--seed``: a
+      prefill of 4 prompts x 4096 tokens through ``forward(mode=
+      "last_logits", return_kv=True)``; finite logits, 12 flash and 26
+      RG-LRU launches per forward, tokens/s and peak memory;
+   e. ``ServeLoop`` at the full config with the launcher's defaults (8
+      requests, 4 slots, prompts of 4-12 tokens, 16 new tokens): decode
+      step ms and tokens/s;
+   d. the kernel path against the kernel-free path at full size: one
+      prompt of 2304 tokens (the 2048-slot ring buffer wraps), prefill
+      ``last_logits`` against 2304 teacher-forced ``decode_step``s, and
+      the prefill's K/V of the last 2048 positions against the decode
+      ring cache (float32 activations over the same weights; the
+      tolerances are at ``PREFILL_DECODE_RTOL``).
 
 The last two lines of standard output are one JSON object of the
 kernels' numbers, then ``{"ok": true, "device": {...}}``.
@@ -72,6 +94,8 @@ REPLACES = {
         "src/repro/kernels/segment_sum/kernel.py:146"),
     "hash_probe": "src/repro/kernels/hash_join/kernel.py:94",
     "masked_hash_probe": "src/repro/kernels/hash_join/kernel.py:146",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:86",
+    "rglru_scan": "src/repro/kernels/rglru/kernel.py:52",
 }
 SOURCES = {
     "masked_segment_sum":
@@ -81,10 +105,28 @@ SOURCES = {
     "hash_probe": "src/repro_torch/kernels/hash_join/csrc/hash_probe.cu",
     "masked_hash_probe":
         "src/repro_torch/kernels/hash_join/csrc/hash_probe.cu",
+    "flash_attention":
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+    "rglru_scan": "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
 }
 PROBE_SLOTS = 1 << 23           # the SF1 orderkey span, to a power of two
 Q18_JOIN_LANES = 1_500_000      # Q18's outer join probes one lane per order
 INT32_MAX = 2**31 - 1           # the partitioned join's sentinel
+# peak rates of one H100 SXM (NVIDIA's data sheet, dense): bf16 on the
+# tensor cores, float32 on the FMA units (the flash kernel's float32 path)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+ARCH = "recurrentgemma_9b"
+PREFILL_BATCH, PREFILL_LEN = 4, 4096
+LONG_PROMPT = 2304              # > local_window: the decode ring wraps
+# Prefill against teacher-forced decode, float32 activations: the decode
+# reads K/V from a bfloat16 cache (kv_dtype, as in repro) where the
+# prefill's flash kernel reads them in float32, so attention outputs move
+# by up to a bfloat16 step (2^-8 relative) and the logits with them.
+# Held as max|prefill - decode| / max|decode|, logits and K/V alike.
+PREFILL_DECODE_RTOL = 2e-2
+# kernel against plain version: float32 sums of up to 4096 products in
+# another order; bfloat16 outputs are one rounding of the same float32
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
 def log(msg: str) -> None:
@@ -619,10 +661,405 @@ def phase_queries(torch, np, data, seed: int):
     return launches
 
 
-def build_all(args):
-    """Build both kernel libraries at once (one nvcc each) and report
-    what ptxas says of each kernel."""
+# ---------------------------------------------------------------------------
+# phase 6: the model stack (recurrentgemma-9b)
+# ---------------------------------------------------------------------------
+
+def model_wrappers():
+    """The model path's two kernel wrappers, by kernel name."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rglru import ops as rops
+    return {"flash_attention": fops.flash_attention,
+            "rglru_scan": rops.rglru_scan}
+
+
+def reset_model_launches() -> None:
+    for fn in model_wrappers().values():
+        fn.launches = 0
+
+
+def read_model_launches() -> dict:
+    return {name: fn.launches for name, fn in model_wrappers().items()}
+
+
+def rel_err(torch, got, want) -> float:
+    """max|got - want| / max|want|, in float32."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def flash_case(torch, case: dict, g):
+    """One flash attention case: the kernel against its plain version,
+    and times of the wrapper, the kernel, the plain version and SDPA."""
+    from repro_torch.kernels.flash_attention import kernel, ops, ref
+    import torch.nn.functional as F
+    B, H, K, S, hd = (case[k] for k in ("B", "H", "K", "S", "hd"))
+    causal, window, dt = case["causal"], case["window"], case["dtype"]
+    dtype = getattr(torch, dt)
+    log(f"kernel check: flash_attention {json.dumps(case)}")
+    q = torch.randn(B, H, S, hd, generator=g, device=DEVICE, dtype=dtype)
+    k = torch.randn(B, K, S, hd, generator=g, device=DEVICE, dtype=dtype)
+    v = torch.randn(B, K, S, hd, generator=g, device=DEVICE, dtype=dtype)
+    call = lambda: ops.flash_attention(q, k, v, causal=causal, window=window)
+    alone = lambda: kernel.flash_attention(q, k, v, causal=causal,
+                                           window=window)
+    plain = lambda: ref.flash_attention_ref(q, k, v, causal=causal,
+                                            window=window)
+    mask = ref.band_mask(S, S, causal=causal, window=window, device=DEVICE)
+    library = lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=K != H)
+    got, want, lib = call(), plain(), library()
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[dt]
+    err = float((got.float() - want.float()).abs().max())
+    expect(got.dtype == dtype and got.shape == q.shape, "flash output",
+           got.dtype, got.shape)
+    expect(bool(torch.isfinite(got).all()), "flash output not finite")
+    expect(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+           "flash kernel differs from its plain version", case, err)
+    pairs = int(mask.sum())             # the (query, key) pairs this run needs
+    flops = 4 * hd * pairs * B * H
+    nbytes = (2 * B * H + 2 * B * K) * S * hd * q.element_size()
+    t_ops = flops / PEAK_FLOPS[dt] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    del got, want
+    return {
+        "op": "flash_attention", **case, "max_abs_err": err,
+        "library_err": float((lib.float() - plain().float()).abs().max()),
+        "ms": cuda_ms(torch, call, reps=5),
+        "kernel_only_ms": cuda_ms(torch, alone, reps=5),
+        "plain_ms": cuda_ms(torch, plain, reps=2),
+        "library_ms": cuda_ms(torch, library, reps=5),
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "flops": flops, "bytes": nbytes,
+    }
+
+
+def rglru_case(torch, case: dict, g):
+    """One RG-LRU scan case: the kernel bit for bit against its plain
+    version, and times."""
+    from repro_torch.kernels.rglru import kernel, ops, ref
+    B, S, W, with_h0 = case["B"], case["S"], case["W"], case["h0"]
+    log(f"kernel check: rglru_scan {json.dumps(case)}")
+    a = torch.sigmoid(torch.randn(B, S, W, generator=g, device=DEVICE))
+    b = torch.randn(B, S, W, generator=g, device=DEVICE)
+    h0 = torch.randn(B, W, generator=g, device=DEVICE) if with_h0 else None
+    call = lambda: ops.rglru_scan(a, b, h0)
+    alone = lambda: kernel.rglru_scan(a, b)
+    plain = lambda: ref.rglru_scan_ref(a, b, h0)
+    got, want = call(), plain()
+    torch.cuda.synchronize()
+    expect(torch.equal(got, want), "RG-LRU kernel differs from its plain "
+           "version", case, float((got - want).abs().max()))
+    nbytes = 3 * B * S * W * 4
+    return {
+        "op": "rglru_scan", **case, "max_abs_err": 0.0,
+        "ms": cuda_ms(torch, call), "kernel_only_ms": cuda_ms(torch, alone),
+        "plain_ms": cuda_ms(torch, plain, reps=2), "library_ms": None,
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "bytes": nbytes,
+    }
+
+
+FLASH_MAIN = dict(B=PREFILL_BATCH, H=16, K=1, S=PREFILL_LEN, hd=256,
+                  causal=True, window=2048, dtype="bfloat16")
+FLASH_CASES = [
+    FLASH_MAIN,                                    # every local block's call
+    {**FLASH_MAIN, "window": None},                # causal, no window
+    {**FLASH_MAIN, "causal": False, "window": None},
+    {**FLASH_MAIN, "K": 8, "hd": 128},             # GQA
+    {**FLASH_MAIN, "S": 4000},                     # ragged S
+    {**FLASH_MAIN, "dtype": "float32"},
+]
+RGLRU_MAIN = dict(B=PREFILL_BATCH, S=PREFILL_LEN, W=4096, h0=False)
+RGLRU_CASES = [RGLRU_MAIN, {**RGLRU_MAIN, "S": 4093},
+               {**RGLRU_MAIN, "h0": True}]
+
+
+def ptxas_of(ptxas: dict, stem: str, tag: str) -> dict:
+    """Registers and spill bytes of the kernel whose name holds ``tag``."""
+    regs, spill = next(v for k, v in ptxas[stem].items() if tag in k)
+    return {"registers": regs, "spill_bytes": spill}
+
+
+def flash_tag(case: dict) -> str:
+    """The mangled-name fragment of the instantiation a case runs."""
+    elem = "13__nv_bfloat16" if case["dtype"] == "bfloat16" else "f"
+    return f"flash_fwd_kernelI{elem}Li{case['hd']}E"
+
+
+def phase_model_kernels(torch, ptxas: dict):
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(2)
+    rows = []
+    for case in FLASH_CASES:
+        rows.append({**flash_case(torch, case, g), **ptxas_of(
+            ptxas, "flash_attention", flash_tag(case))})
+        log("kernel " + json.dumps(rows[-1]))
+    for case in RGLRU_CASES:
+        rows.append({**rglru_case(torch, case, g), **ptxas_of(
+            ptxas, "rglru_scan", "rglru_scan_kernel")})
+        log("kernel " + json.dumps(rows[-1]))
+    return rows
+
+
+def phase_launcher(torch) -> dict:
+    """6b: ``repro_torch.launch.serve`` on the card, smoke config."""
+    from repro_torch.launch import serve
+    reset_model_launches()
+    t0 = time.perf_counter()
+    rc = serve.main(["--arch", ARCH, "--device", DEVICE])
+    torch.cuda.synchronize()
+    launches = read_model_launches()
+    expect(rc == 0, "the launcher returned", rc)
+    log(f"launcher: rc={rc} wall_s={time.perf_counter() - t0:.3f} "
+        f"launches {json.dumps(launches)}")
+    return launches
+
+
+def full_model(torch, seed: int):
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    model = Model(cfg, device=DEVICE).init_params(g)
+    torch.cuda.synchronize()
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    kinds = [b.kind for b in model.layers]
+    log(f"model: {cfg.name} layers={cfg.num_layers} "
+        f"(local {kinds.count('local')}, rglru {kinds.count('rglru')}) "
+        f"d_model={cfg.d_model} params {nbytes / 1e9:.3f} GB, drawn in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return cfg, model
+
+
+def phase_prefill(torch, cfg, model, seed: int) -> dict:
+    """6c: the serving prefill at full width and depth."""
+    n_local = sum(b.kind == "local" for b in model.layers)
+    n_rglru = sum(b.kind == "rglru" for b in model.layers)
+    expect((n_local, n_rglru) == (12, 26), "layer kinds", n_local, n_rglru)
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN),
+                           generator=g, device=DEVICE)
+    out = {}
+    for run in ("cold", "warm"):
+        torch.cuda.reset_peak_memory_stats()
+        reset_model_launches()
+        t0 = time.perf_counter()
+        logits, aux, kvs = model(tokens, mode="last_logits", return_kv=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_model_launches()
+        expect(launches == {"flash_attention": n_local,
+                            "rglru_scan": n_rglru},
+               "launches per forward", launches)
+        expect(logits.shape == (PREFILL_BATCH, 1, cfg.padded_vocab)
+               and logits.dtype == torch.float32, "logits", logits.shape)
+        expect(bool(torch.isfinite(logits).all()), "non-finite logits")
+        live = [kv for kv in kvs if kv is not None]
+        expect(len(live) == n_local and all(
+            kv[0].shape == (PREFILL_BATCH, 1, PREFILL_LEN, cfg.head_dim)
+            for kv in live), "prefill K/V")
+        peak = torch.cuda.max_memory_allocated()
+        toks = PREFILL_BATCH * PREFILL_LEN
+        log(f"prefill {run}: {PREFILL_BATCH}x{PREFILL_LEN} tokens in "
+            f"{wall:.4f} s = {toks / wall:.1f} tokens/s; launches "
+            f"{json.dumps(launches)}; peak memory {peak / 1e9:.3f} GB; "
+            f"argmax {logits[:, 0, :cfg.vocab_size].argmax(-1).tolist()}")
+        out = {"prefill_s": wall, "tokens_per_s": toks / wall,
+               "peak_gb": peak / 1e9, "launches": launches}
+        del logits, kvs
+    out["profile"] = profile_device(
+        torch, "prefill", lambda: model(tokens, mode="last_logits"))
+    return out
+
+
+def profile_device(torch, label: str, fn) -> dict | None:
+    """Device time by kernel, and the device's busy share, over one call
+    of ``fn`` (a diagnostic: no check depends on it)."""
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = sorted(
+            ((ev.self_device_time_total, ev.key, ev.count)
+             for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA
+             and ev.self_device_time_total > 0
+             and not ev.key.startswith("Command Buffer")), reverse=True)
+        busy = sum(r[0] for r in rows) / 1e6
+        n = sum(r[2] for r in rows)
+        log(f"{label} profile: wall {wall:.4f} s, {n} device ops busy "
+            f"{busy:.4f} s ({100 * busy / wall:.1f}% of the wall time)")
+        for dev_us, key, count in rows[:12]:
+            log(f"{label} profile: {dev_us / 1e3:9.3f} ms  x{count:<5d} "
+                f"{key[:90]}")
+        return {"wall_s": wall, "busy_s": busy, "device_ops": n,
+                "top": [(k[:90], us / 1e3, c) for us, k, c in rows[:12]]}
+    except Exception as e:      # the profiler is untried on this machine
+        log(f"{label} profile: not measured ({type(e).__name__}: {e})")
+        return None
+
+
+def phase_serve_loop(torch, np, cfg, model, seed: int) -> dict:
+    """6e: continuous batching at full width with the launcher's
+    defaults."""
+    from repro_torch.serving.serve_loop import Request, ServeLoop
+    loop = ServeLoop(cfg, model, batch_slots=4, max_len=128)
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid=i, prompt=rng.integers(
+        0, cfg.vocab_size, size=rng.integers(4, 12)).astype(np.int32),
+        max_new=16) for i in range(8)]
+    for r in reqs:
+        loop.submit(r)
+    reset_model_launches()
+    loop.step()                  # first step: cuBLAS set-up, not timed
+    torch.cuda.synchronize()
+    steps, t0 = 0, time.perf_counter()
+    while loop.queue or any(loop.active):
+        loop.step()
+        steps += 1
+    wall = time.perf_counter() - t0
+    launches = read_model_launches()
+    expect(all(r.done and len(r.out) == 16 for r in reqs),
+           "not every request finished with 16 tokens")
+    expect(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out),
+           "a token outside the vocabulary")
+    slot_tokens = steps * loop.B
+    generated = sum(len(r.out) for r in reqs)
+    log(f"serve loop: {len(reqs)} requests, {loop.B} slots, {steps} timed "
+        f"steps in {wall:.3f} s = {1e3 * wall / steps:.2f} ms per decode "
+        f"step, {slot_tokens / wall:.1f} slot-tokens/s, {generated} "
+        f"generated tokens; launches {json.dumps(launches)}; first outputs "
+        f"{reqs[0].out[:8]}")
+    caches = model.init_cache(loop.B, 128)
+    tokens = loop.tokens
+
+    def five_steps():
+        nonlocal caches
+        for _ in range(5):
+            _, caches = model.decode_step(tokens, caches)
+
+    prof = profile_device(torch, "decode 5 steps", five_steps)
+    return {"decode_step_ms": 1e3 * wall / steps, "steps": steps,
+            "slot_tokens_per_s": slot_tokens / wall, "launches": launches,
+            "profile": prof}
+
+
+def ring_from_prefill(torch, kv, window: int):
+    """The decode ring cache's content, from the prefill's (B, K, S, hd):
+    position p sits in slot p mod window, for the last window positions."""
+    S = kv.shape[2]
+    slots = torch.arange(S - window, S, device=kv.device) % window
+    ring = torch.empty_like(kv[:, :, :window])
+    ring[:, :, slots] = kv[:, :, S - window:]
+    return ring
+
+
+def phase_prefill_vs_decode(torch, cfg, model, seed: int) -> dict:
+    """6d: the kernel path (prefill: flash + RG-LRU scan) against the
+    kernel-free path (decode: one-token softmax, one recurrence step) on
+    one prompt of LONG_PROMPT tokens, in float32 activations over the
+    same weights (upcast once; bfloat16 to float32 is exact)."""
+    import dataclasses
+    from repro_torch.models.model import Model
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    m32 = Model(cfg32, device=DEVICE)
+    m32.load_state_dict(model.state_dict())
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed + 2)
+    tokens = torch.randint(0, cfg.vocab_size, (1, LONG_PROMPT), generator=g,
+                           device=DEVICE)
+    reset_model_launches()
+    t0 = time.perf_counter()
+    want_logits, _, kvs = m32(tokens, mode="last_logits", return_kv=True)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = read_model_launches()
+    caches = m32.init_cache(1, LONG_PROMPT)
+    t0 = time.perf_counter()
+    for t in range(LONG_PROMPT):
+        logits, caches = m32.decode_step(tokens[:, t:t + 1], caches)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    V = cfg.vocab_size
+    p, d = want_logits[0, 0, :V], logits[0, 0, :V]
+    err = rel_err(torch, p, d)
+    top2 = torch.topk(d, 2).values
+    log(f"prefill vs decode: {LONG_PROMPT} tokens; prefill {prefill_s:.3f} s "
+        f"(launches {json.dumps(launches)}), {LONG_PROMPT} decode steps "
+        f"{decode_s:.3f} s ({1e3 * decode_s / LONG_PROMPT:.2f} ms/step); "
+        f"argmax {int(p.argmax())} vs {int(d.argmax())}, top-2 margin "
+        f"{float(top2[0] - top2[1]):.5f}; logits rel err {err:.3e}")
+    expect(int(p.argmax()) == int(d.argmax()), "prefill and decode argmax "
+           "differ")
+    expect(err <= PREFILL_DECODE_RTOL, "prefill vs decode logits", err)
+    kv_errs = []
+    for i, kv in enumerate(kvs):
+        if kv is None:
+            continue
+        cache = caches[i]["attn"]
+        expect(cache["len"] == LONG_PROMPT, "cache length", cache["len"])
+        window = cache["k"].shape[2]
+        for name, pre, dec in (("k", kv[0], cache["k"]),
+                               ("v", kv[1], cache["v"])):
+            e = rel_err(torch, ring_from_prefill(torch, pre, window), dec)
+            kv_errs.append(e)
+            expect(e <= PREFILL_DECODE_RTOL, f"layer {i} {name}: prefill "
+                   f"K/V vs the decode ring", e)
+    log(f"prefill vs decode: K/V of the last {window} positions in "
+        f"{len(kv_errs) // 2} local layers match the decode ring; max rel "
+        f"err {max(kv_errs):.3e}")
+    del m32, caches, kvs
+    return {"prefill_s": prefill_s, "decode_step_ms":
+            1e3 * decode_s / LONG_PROMPT, "logits_rel_err": err,
+            "kv_rel_err": max(kv_errs), "launches": launches}
+
+
+def phase_model(torch, np, seed: int) -> dict:
+    """6b-6e on one set of full-size weights; returns what the kernel line
+    and the log need."""
+    out = {"launcher": phase_launcher(torch)}
+    cfg, model = full_model(torch, seed)
+    out["prefill"] = phase_prefill(torch, cfg, model, seed)
+    out["serve"] = phase_serve_loop(torch, np, cfg, model, seed)
+    out["long"] = phase_prefill_vs_decode(torch, cfg, model, seed)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def ptxas_kernels(report: str) -> dict:
+    """{mangled kernel name: (registers, spill store bytes)} from
+    ``nvcc -Xptxas -v`` output."""
+    out, name = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            out[name] = [0, 0]
+        elif name and "bytes spill stores" in line:
+            out[name][1] = int(line.split("bytes stack frame, ")[1].split()[0])
+        elif name and "Used " in line and "registers" in line:
+            out[name][0] = int(line.split("Used ")[1].split()[0])
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def build_all(args) -> dict:
+    """Build the four kernel libraries at once (one nvcc each) and report
+    what ptxas says of each kernel; returns {library stem: {kernel:
+    (registers, spill bytes)}}."""
+    from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.hash_join import kernel as hkernel
+    from repro_torch.kernels.rglru import kernel as rkernel
     from repro_torch.kernels.segment_sum import kernel as skernel
 
     def timed(mod):
@@ -630,24 +1067,23 @@ def build_all(args):
         lib, report = mod.build(ptxas_report=True)
         return lib, report, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        built = list(pool.map(timed, (skernel, hkernel)))
+    mods = (skernel, hkernel, fkernel, rkernel)
+    with ThreadPoolExecutor(max_workers=len(mods)) as pool:
+        built = list(pool.map(timed, mods))
+    found = {}
     for lib, report, secs in built:
-        regs = [line.strip() for line in report.splitlines()
-                if "registers" in line]
-        spills = [line.strip() for line in report.splitlines()
-                  if "spill" in line
-                  and " 0 bytes spill stores" not in line]
-        most = max((int(r.split("Used ")[1].split()[0]) for r in regs),
-                   default=0)
-        log(f"build: {lib.name} in {secs:.1f} s; {len(regs)} kernels; "
+        stem = lib.name.split("-")[0].removeprefix("lib")
+        kernels = found[stem] = ptxas_kernels(report)
+        spills = {k: v[1] for k, v in kernels.items() if v[1]}
+        most = max((v[0] for v in kernels.values()), default=0)
+        log(f"build: {lib.name} in {secs:.1f} s; {len(kernels)} kernels; "
             f"max registers {most}; spilling: {spills or 'none'}")
         if args.log_dir:
             os.makedirs(args.log_dir, exist_ok=True)
-            stem = lib.name.split("-")[0]
-            with open(os.path.join(args.log_dir, f"ptxas-{stem}.txt"),
+            with open(os.path.join(args.log_dir, f"ptxas-lib{stem}.txt"),
                       "w") as f:
                 f.write(report)
+    return found
 
 
 def main() -> int:
@@ -683,7 +1119,7 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     # 2. build
-    build_all(args)
+    ptxas = build_all(args)
 
     # 3. kernels
     rows = phase_kernels(torch)
@@ -743,6 +1179,39 @@ def main() -> int:
             "library_ms": row["library_ms"],
             "kernel_only_ms": row["kernel_only_ms"],
             "shape": f"n={N_ROWS} T={PROBE_SLOTS} clustered",
+        })
+
+    # 6. the model stack
+    del data
+    torch.cuda.empty_cache()
+    model_rows = phase_model_kernels(torch, ptxas)
+    if args.log_dir:
+        with open(os.path.join(args.log_dir, "kernels.jsonl"), "a") as f:
+            for row in model_rows:
+                f.write(json.dumps(row) + "\n")
+    model = phase_model(torch, np, args.seed)
+    log(f"model summary: {json.dumps(model)}")
+    for name, main_case in (("flash_attention", FLASH_MAIN),
+                            ("rglru_scan", RGLRU_MAIN)):
+        row = next(r for r in model_rows if r["op"] == name
+                   and all(r[k] == v for k, v in main_case.items()))
+        by_path = {"prefill_4x4096": model["prefill"]["launches"][name],
+                   "prefill_2304_f32": model["long"]["launches"][name],
+                   "serve_loop": model["serve"]["launches"][name],
+                   "launcher": model["launcher"][name]}
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name],
+            "launches": by_path["prefill_4x4096"],
+            "launches_by_path": by_path,
+            "max_abs_err": max(r["max_abs_err"] for r in model_rows
+                               if r["op"] == name),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "kernel_only_ms": row["kernel_only_ms"],
+            "shape": json.dumps(main_case), "registers": row["registers"],
+            "spill_bytes": row["spill_bytes"],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

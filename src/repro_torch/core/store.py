@@ -14,8 +14,13 @@ Two backends:
 
 Table snapshots go in as one raw array blob per column plus a JSON
 manifest, so two snapshots sharing columns share physical blobs, which is
-exactly the paper's copy-on-write story. The blob layout is the same as
-``repro``'s, so a store written by either package reads in the other.
+exactly the paper's copy-on-write story. Model state goes in the same
+way through :func:`put_pytree`: one tensor blob per leaf and a manifest.
+The blob layout is the same as ``repro``'s, so a store written by either
+package reads in the other. A dtype numpy lacks (bfloat16, the float8
+types) is stored as its raw bits under a one-line dtype header, as
+``repro`` stores it; the port reads such a blob back as a torch tensor
+(:meth:`ObjectStore.get_tensor`) and never needs ``ml_dtypes``.
 """
 from __future__ import annotations
 
@@ -29,10 +34,21 @@ import time
 from typing import Any, Iterator, Mapping
 
 import numpy as np
+import torch
 
 from repro_torch.core.hooks import fault_point
 
-__all__ = ["ObjectStore", "MemoryStore", "FileStore", "content_hash"]
+__all__ = ["ObjectStore", "MemoryStore", "FileStore", "put_pytree",
+           "get_pytree", "get_pytree_leaves", "tree_flatten",
+           "tree_unflatten", "content_hash"]
+
+# dtypes numpy lacks: their blobs hold the raw bits, as unsigned ints of
+# the same width, under the dtype's name
+_RAW_DTYPES = {"bfloat16": torch.bfloat16,
+               "float8_e4m3fn": torch.float8_e4m3fn,
+               "float8_e5m2": torch.float8_e5m2}
+_RAW_NAMES = {v: k for k, v in _RAW_DTYPES.items()}
+_UINT = {1: torch.uint8, 2: torch.uint16}
 
 
 def content_hash(data: bytes) -> str:
@@ -98,19 +114,49 @@ class ObjectStore:
                            np.uint32)
         else:
             raw = arr
+        return self._put_blob(dtype_name, raw)
+
+    def _put_blob(self, dtype_name: str, raw: np.ndarray) -> str:
         buf = io.BytesIO()
         buf.write(f"{dtype_name}\n".encode())
         np.save(buf, raw, allow_pickle=False)
         return self.put(buf.getvalue())
 
-    def get_array(self, key: str) -> np.ndarray:
+    def _get_blob(self, key: str) -> tuple[str, np.ndarray]:
         buf = io.BytesIO(self.get(key))
         dtype_name = buf.readline().decode().strip()
-        raw = np.load(buf, allow_pickle=False)
+        return dtype_name, np.load(buf, allow_pickle=False)
+
+    def get_array(self, key: str) -> np.ndarray:
+        dtype_name, raw = self._get_blob(key)
         if raw.dtype.name != dtype_name:
-            import ml_dtypes  # bfloat16 and the other non-numpy dtypes
-            raw = raw.view(np.dtype(getattr(ml_dtypes, dtype_name)))
+            raise TypeError(
+                f"blob {key[:12]} holds {dtype_name}, which numpy lacks; "
+                f"read it as a torch tensor with get_tensor")
         return raw
+
+    def put_tensor(self, t: torch.Tensor) -> str:
+        """Store a tensor (moved to the host) as the same bytes ``repro``
+        writes for the equal numpy array."""
+        t = t.detach().cpu().contiguous()
+        name = _RAW_NAMES.get(t.dtype)
+        if name is None:
+            return self.put_array(t.numpy())
+        return self._put_blob(name, t.view(_UINT[t.element_size()]).numpy())
+
+    def get_tensor(self, key: str) -> torch.Tensor:
+        """A numeric blob as a CPU tensor; bfloat16 and float8 blobs come
+        back through a view of their raw bits."""
+        dtype_name, raw = self._get_blob(key)
+        if raw.dtype.name == dtype_name:
+            if raw.dtype.kind in ("U", "S", "O"):
+                raise TypeError(f"blob {key[:12]} holds {dtype_name}, "
+                                f"not numbers")
+            return torch.from_numpy(raw)
+        dtype = _RAW_DTYPES.get(dtype_name)
+        if dtype is None:
+            raise TypeError(f"blob {key[:12]}: unknown dtype {dtype_name}")
+        return torch.from_numpy(raw).view(dtype)
 
 
 class MemoryStore(ObjectStore):
@@ -311,3 +357,93 @@ class FileStore(ObjectStore):
                     except OSError:  # pragma: no cover - racing writer
                         pass
         return removed
+
+
+# ---------------------------------------------------------------------------
+# Pytree snapshots (copy-on-write structured artifacts)
+# ---------------------------------------------------------------------------
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def tree_flatten(tree: Any) -> tuple[list, str]:
+    """Leaves in ``repro``'s order (dict keys sorted, lists, tuples and
+    NamedTuple fields in order; ``None`` holds no leaf) and the port's
+    structure string of the tree."""
+    leaves: list = []
+
+    def walk(x) -> str:
+        if x is None:
+            return "None"
+        if isinstance(x, dict):
+            return "{" + ", ".join(f"{k!r}: {walk(x[k])}"
+                                   for k in sorted(x)) + "}"
+        if _is_namedtuple(x):
+            return type(x).__name__ + "(" + ", ".join(
+                f"{f}={walk(v)}" for f, v in zip(x._fields, x)) + ")"
+        if isinstance(x, (list, tuple)):
+            inner = ", ".join(walk(v) for v in x)
+            return f"[{inner}]" if isinstance(x, list) else f"({inner},)"
+        leaves.append(x)
+        return "*"
+
+    return leaves, walk(tree)
+
+
+def tree_unflatten(like: Any, leaves: list) -> Any:
+    """``leaves`` (in :func:`tree_flatten`'s order) in the structure of
+    ``like``."""
+    it = iter(leaves)
+
+    def build(x):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            out = {k: build(x[k]) for k in sorted(x)}
+            return {k: out[k] for k in x}
+        if _is_namedtuple(x):
+            return type(x)(*(build(v) for v in x))
+        if isinstance(x, (list, tuple)):
+            return type(x)(build(v) for v in x)
+        return next(it)
+
+    tree = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the structure holds")
+    return tree
+
+
+def put_pytree(store: ObjectStore, tree: Any) -> str:
+    """Store a tree of tensors (or numpy arrays); returns the manifest key
+    (the snapshot id).
+
+    Leaves are stored as individual blobs, so snapshots that share leaves
+    share storage — logical copies are zero-copy, as in the paper.
+    """
+    leaves, structure = tree_flatten(tree)
+    leaf_keys = [store.put_tensor(x) if isinstance(x, torch.Tensor)
+                 else store.put_array(x) for x in leaves]
+    manifest = {"treedef": structure, "leaves": leaf_keys, "kind": "pytree"}
+    return store.put_json(manifest)
+
+
+def get_pytree(store: ObjectStore, key: str, like: Any) -> Any:
+    """Load a snapshot that :func:`put_pytree` wrote as CPU tensors;
+    ``like`` provides the tree structure."""
+    manifest = store.get_json(key)
+    _, structure = tree_flatten(like)
+    if structure != manifest["treedef"]:
+        raise ValueError(
+            "snapshot treedef mismatch: stored structure differs from "
+            "`like` structure (a snapshot that repro wrote reads through "
+            "get_pytree_leaves)")
+    return tree_unflatten(like, get_pytree_leaves(store, key))
+
+
+def get_pytree_leaves(store: ObjectStore, key: str) -> list[torch.Tensor]:
+    """The leaves of a pytree snapshot, in order, as CPU tensors: also
+    reads a snapshot that ``repro`` wrote, whose structure string is
+    JAX's."""
+    manifest = store.get_json(key)
+    return [store.get_tensor(k) for k in manifest["leaves"]]

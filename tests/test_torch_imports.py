@@ -1,6 +1,8 @@
 """The import rule of the port: ``repro_torch`` and ``chip_smoke.py``
 import no JAX and no module of ``repro``, not even one that loads no
-JAX; what the port needs from such a module it keeps as its own copy."""
+JAX; what the port needs from such a module it keeps as its own copy.
+Nor do they import ``ml_dtypes``, which ships with JAX: the port reads
+bfloat16 through torch."""
 import ast
 import os
 import pathlib
@@ -17,9 +19,12 @@ MODULES = sorted(
     .removesuffix(".__init__") for p in PORT.rglob("*.py"))
 
 
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
+
+
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in FORBIDDEN
 
 
 def _imports(tree: ast.AST):
@@ -39,6 +44,10 @@ def _imports(tree: ast.AST):
 
 def test_the_scan_sees_the_package():
     assert len(FILES) > 20 and "repro_torch.exec.torch_backend" in MODULES
+    assert {"repro_torch.models.model", "repro_torch.serving.serve_loop",
+            "repro_torch.launch.serve", "repro_torch.configs.base",
+            "repro_torch.kernels.flash_attention.ops",
+            "repro_torch.kernels.rglru.ops"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("path", FILES,
@@ -55,7 +64,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules\n"
-        "             if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        f"             if k.split('.')[0] in {FORBIDDEN!r})\n"
         "print(len(sys.modules), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
