@@ -59,7 +59,8 @@ before the result line):
       ``last_logits`` against 2304 teacher-forced ``decode_step``s, and
       the prefill's K/V of the last 2048 positions against the decode
       ring cache (float32 activations over the same weights; the
-      tolerances are at ``PREFILL_DECODE_RTOL``).
+      tolerances are ``PREFILL_DECODE_LOGITS_RTOL`` and
+      ``PREFILL_DECODE_KV_RTOL``).
 
 The last two lines of standard output are one JSON object of the
 kernels' numbers, then ``{"ok": true, "device": {...}}``.
@@ -122,11 +123,18 @@ LONG_PROMPT = 2304              # > local_window: the decode ring wraps
 # reads K/V from a bfloat16 cache (kv_dtype, as in repro) where the
 # prefill's flash kernel reads them in float32, so attention outputs move
 # by up to a bfloat16 step (2^-8 relative) and the logits with them.
-# Held as max|prefill - decode| / max|decode|, logits and K/V alike.
-PREFILL_DECODE_RTOL = 2e-2
-# kernel against plain version: float32 sums of up to 4096 products in
-# another order; bfloat16 outputs are one rounding of the same float32
-FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# Held as max|prefill - decode| / max|decode|. The logits read 5.7e-4 on
+# the H100 and are held at 5e-3; the K/V, which carry that step through
+# every earlier layer, read 3.5e-3 and are held at 2e-2.
+PREFILL_DECODE_LOGITS_RTOL = 5e-3
+PREFILL_DECODE_KV_RTOL = 2e-2
+# kernel against plain version, as torch.allclose's (rtol, atol): both
+# compute in float32 and round once to the output dtype. float32: sums of
+# up to 4096 products in another order. bfloat16: the two float32 results
+# may straddle a rounding boundary, so they may differ by one bfloat16
+# step, at most 2^-7 of the value; the atol covers the float32 order on
+# outputs near zero.
+FLASH_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2 ** -7, 1e-5)}
 
 
 def log(msg: str) -> None:
@@ -710,12 +718,12 @@ def flash_case(torch, case: dict, g):
         q, k, v, attn_mask=mask, enable_gqa=K != H)
     got, want, lib = call(), plain(), library()
     torch.cuda.synchronize()
-    tol = FLASH_TOL[dt]
+    rtol, atol = FLASH_TOL[dt]
     err = float((got.float() - want.float()).abs().max())
     expect(got.dtype == dtype and got.shape == q.shape, "flash output",
            got.dtype, got.shape)
     expect(bool(torch.isfinite(got).all()), "flash output not finite")
-    expect(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+    expect(torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol),
            "flash kernel differs from its plain version", case, err)
     pairs = int(mask.sum())             # the (query, key) pairs this run needs
     flops = 4 * hd * pairs * B * H
@@ -880,34 +888,48 @@ def phase_prefill(torch, cfg, model, seed: int) -> dict:
 
 def profile_device(torch, label: str, fn) -> dict | None:
     """Device time by kernel, and the device's busy share, over one call
-    of ``fn`` (a diagnostic: no check depends on it)."""
-    try:
+    of ``fn`` (a diagnostic: no check depends on it). Only the profiler
+    may fail quietly; a failure of ``fn`` fails the run."""
+    try:                        # the profiler is untried on this machine
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as e:
+        log(f"{label} profile: not measured ({type(e).__name__}: {e})")
+        return None
+    t0 = time.perf_counter()
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except BaseException:
+        try:
+            prof.stop()
+        except Exception:
+            pass
+        raise
+    wall = time.perf_counter() - t0
+    try:
+        prof.stop()
         rows = sorted(
             ((ev.self_device_time_total, ev.key, ev.count)
              for ev in prof.key_averages()
              if ev.device_type == DeviceType.CUDA
              and ev.self_device_time_total > 0
              and not ev.key.startswith("Command Buffer")), reverse=True)
-        busy = sum(r[0] for r in rows) / 1e6
-        n = sum(r[2] for r in rows)
-        log(f"{label} profile: wall {wall:.4f} s, {n} device ops busy "
-            f"{busy:.4f} s ({100 * busy / wall:.1f}% of the wall time)")
-        for dev_us, key, count in rows[:12]:
-            log(f"{label} profile: {dev_us / 1e3:9.3f} ms  x{count:<5d} "
-                f"{key[:90]}")
-        return {"wall_s": wall, "busy_s": busy, "device_ops": n,
-                "top": [(k[:90], us / 1e3, c) for us, k, c in rows[:12]]}
-    except Exception as e:      # the profiler is untried on this machine
+    except Exception as e:
         log(f"{label} profile: not measured ({type(e).__name__}: {e})")
         return None
+    busy = sum(r[0] for r in rows) / 1e6
+    n = sum(r[2] for r in rows)
+    log(f"{label} profile: wall {wall:.4f} s, {n} device ops busy "
+        f"{busy:.4f} s ({100 * busy / wall:.1f}% of the wall time)")
+    for dev_us, key, count in rows[:12]:
+        log(f"{label} profile: {dev_us / 1e3:9.3f} ms  x{count:<5d} "
+            f"{key[:90]}")
+    return {"wall_s": wall, "busy_s": busy, "device_ops": n,
+            "top": [(k[:90], us / 1e3, c) for us, k, c in rows[:12]]}
 
 
 def phase_serve_loop(torch, np, cfg, model, seed: int) -> dict:
@@ -1002,7 +1024,8 @@ def phase_prefill_vs_decode(torch, cfg, model, seed: int) -> dict:
         f"{float(top2[0] - top2[1]):.5f}; logits rel err {err:.3e}")
     expect(int(p.argmax()) == int(d.argmax()), "prefill and decode argmax "
            "differ")
-    expect(err <= PREFILL_DECODE_RTOL, "prefill vs decode logits", err)
+    expect(err <= PREFILL_DECODE_LOGITS_RTOL, "prefill vs decode logits",
+           err)
     kv_errs = []
     for i, kv in enumerate(kvs):
         if kv is None:
@@ -1014,7 +1037,7 @@ def phase_prefill_vs_decode(torch, cfg, model, seed: int) -> dict:
                                ("v", kv[1], cache["v"])):
             e = rel_err(torch, ring_from_prefill(torch, pre, window), dec)
             kv_errs.append(e)
-            expect(e <= PREFILL_DECODE_RTOL, f"layer {i} {name}: prefill "
+            expect(e <= PREFILL_DECODE_KV_RTOL, f"layer {i} {name}: prefill "
                    f"K/V vs the decode ring", e)
     log(f"prefill vs decode: K/V of the last {window} positions in "
         f"{len(kv_errs) // 2} local layers match the decode ring; max rel "

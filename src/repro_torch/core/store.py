@@ -17,10 +17,12 @@ manifest, so two snapshots sharing columns share physical blobs, which is
 exactly the paper's copy-on-write story. Model state goes in the same
 way through :func:`put_pytree`: one tensor blob per leaf and a manifest.
 The blob layout is the same as ``repro``'s, so a store written by either
-package reads in the other. A dtype numpy lacks (bfloat16, the float8
-types) is stored as its raw bits under a one-line dtype header, as
-``repro`` stores it; the port reads such a blob back as a torch tensor
-(:meth:`ObjectStore.get_tensor`) and never needs ``ml_dtypes``.
+package reads in the other. bfloat16, which numpy lacks, is stored as
+its raw bits under a one-line dtype header, as ``repro`` stores it; the
+port reads such a blob back as a torch tensor
+(:meth:`ObjectStore.get_tensor`) and never needs ``ml_dtypes``. Table
+columns are numpy arrays, so a bfloat16 column cannot be read
+(ROADMAP Queue 4).
 """
 from __future__ import annotations
 
@@ -44,11 +46,8 @@ __all__ = ["ObjectStore", "MemoryStore", "FileStore", "put_pytree",
 
 # dtypes numpy lacks: their blobs hold the raw bits, as unsigned ints of
 # the same width, under the dtype's name
-_RAW_DTYPES = {"bfloat16": torch.bfloat16,
-               "float8_e4m3fn": torch.float8_e4m3fn,
-               "float8_e5m2": torch.float8_e5m2}
+_RAW_DTYPES = {"bfloat16": torch.bfloat16}
 _RAW_NAMES = {v: k for k, v in _RAW_DTYPES.items()}
-_UINT = {1: torch.uint8, 2: torch.uint16}
 
 
 def content_hash(data: bytes) -> str:
@@ -131,8 +130,10 @@ class ObjectStore:
         dtype_name, raw = self._get_blob(key)
         if raw.dtype.name != dtype_name:
             raise TypeError(
-                f"blob {key[:12]} holds {dtype_name}, which numpy lacks; "
-                f"read it as a torch tensor with get_tensor")
+                f"blob {key[:12]} holds {dtype_name}, which numpy lacks: "
+                f"read it as a torch tensor with get_tensor; a table "
+                f"column of that dtype is not supported by the port "
+                f"(ROADMAP Queue 4)")
         return raw
 
     def put_tensor(self, t: torch.Tensor) -> str:
@@ -142,11 +143,11 @@ class ObjectStore:
         name = _RAW_NAMES.get(t.dtype)
         if name is None:
             return self.put_array(t.numpy())
-        return self._put_blob(name, t.view(_UINT[t.element_size()]).numpy())
+        return self._put_blob(name, t.view(torch.uint16).numpy())
 
     def get_tensor(self, key: str) -> torch.Tensor:
-        """A numeric blob as a CPU tensor; bfloat16 and float8 blobs come
-        back through a view of their raw bits."""
+        """A numeric blob as a CPU tensor; a bfloat16 blob comes back
+        through a view of its raw bits."""
         dtype_name, raw = self._get_blob(key)
         if raw.dtype.name == dtype_name:
             if raw.dtype.kind in ("U", "S", "O"):

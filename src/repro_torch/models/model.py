@@ -95,13 +95,14 @@ class Block(nn.Module):
 
 
 class Model(L.ParamModule):
-    """A decoder over ``cfg``, its parameters allocated on ``device``
-    (uninitialized: fill them with :meth:`init_params` or
-    ``load_state_dict``; on ``"meta"`` they take no memory). Parameter
+    """A decoder over ``cfg``, its parameters allocated on ``device``,
+    the card unless the caller names ``"cpu"`` (or ``"meta"``, where they
+    take no memory). They are uninitialized: fill them with
+    :meth:`init_params` or ``load_state_dict``. Parameter
     names follow ``repro``'s: ``embed``, ``lm_head``, ``final_norm.scale``
     and ``layers.<i>.{norm1,mix,norm2,ffn}.<name>``."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, *, device="cuda"):
         why = unsupported(cfg)
         if why is not None:
             raise NotImplementedError(

@@ -5,11 +5,13 @@ device). The file imports no JAX and no ``repro`` module, so it also
 runs where only the port is installed:
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_*_cuda.py``.
 
-Tolerances: both sides compute in float32; they sum the products and
-the softmax in different orders, so float32 agrees to 2e-5. bfloat16
-inputs are the same numbers for both, and only the output's rounding to
-bfloat16 differs: one bfloat16 step (2^-8 relative) plus the float32
-noise, so 2e-2.
+Tolerances, as (rtol, atol): both sides compute in float32; they sum
+the products and the softmax in different orders, so float32 agrees to
+2e-5. bfloat16 inputs are the same numbers for both, and only the
+output's rounding to bfloat16 differs: the two float32 results may
+straddle a rounding boundary, so they may land one bfloat16 step apart,
+at most 2^-7 of the value; the atol covers the float32 order on outputs
+near zero.
 """
 import numpy as np
 import pytest
@@ -17,7 +19,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops, ref
 
-TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2 ** -7, 1e-5)}
 
 
 @pytest.fixture
@@ -53,8 +55,9 @@ def test_cuda_kernel_matches_plain(cuda, dtype, hd, causal, window, B, H,
     torch.cuda.synchronize()
     assert ops.flash_attention.launches == before + 1
     assert got.dtype == dtype and got.shape == q.shape
-    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
-                               atol=TOL[dtype])
+    rtol, atol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
 
 
 @pytest.mark.cuda

@@ -205,7 +205,7 @@ def test_rglru_decode_steps_and_state_init():
 def _models(arch, over, seed=0):
     jc, tc = _cfgs(arch, **over)
     jp = JM.init_params(jax.random.PRNGKey(seed), jc)
-    model = Model(tc)
+    model = Model(tc, device="cpu")
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jp), tc))
     return jc, tc, jp, model
 
@@ -322,7 +322,8 @@ def test_params_from_jax_unstacks_layers_in_order():
 
 def test_init_params_follows_repro_scales():
     cfg = dataclasses.replace(get_smoke_config("recurrentgemma_9b"), **F32)
-    model = Model(cfg).init_params(torch.Generator().manual_seed(0))
+    model = Model(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
     sd = model.state_dict()
     assert abs(float(sd["embed"].std()) - 0.02) < 2e-3
     assert abs(float(sd["layers.0.mix.w_a"].std()) - 0.01) < 1e-3
@@ -331,7 +332,8 @@ def test_init_params_follows_repro_scales():
     np.testing.assert_allclose(sd["layers.0.mix.lam"].numpy(),
                                np.linspace(2, 6, 64), rtol=1e-6)
     assert bool((sd["final_norm.scale"] == 1).all())
-    again = Model(cfg).init_params(torch.Generator().manual_seed(0))
+    again = Model(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
     assert all(torch.equal(a, b) for a, b in
                zip(sd.values(), again.state_dict().values()))
 
@@ -343,6 +345,16 @@ def test_full_recurrentgemma_config_on_meta():
     assert kinds.count("local") == 12 and kinds.count("rglru") == 26
     nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
     assert 20e9 < nbytes < 21e9
+
+
+def test_model_lives_on_the_card_unless_asked_for_the_cpu():
+    cfg = dataclasses.replace(get_smoke_config("recurrentgemma_9b"), **F32)
+    if torch.cuda.is_available():
+        assert Model(cfg).device.type == "cuda"
+    else:   # the default asks for the card, which is absent here
+        with pytest.raises((AssertionError, RuntimeError)):
+            Model(cfg)
+    assert Model(cfg, device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("arch", ["xlstm_350m", "granite_moe_3b",

@@ -56,7 +56,7 @@ def test_serve_loop_generates_the_same_tokens(arch):
     jc = dataclasses.replace(jax_smoke(arch), **F32)
     tc = dataclasses.replace(get_smoke_config(arch), **F32)
     jp = JM.init_params(jax.random.PRNGKey(0), jc)
-    model = Model(tc)
+    model = Model(tc, device="cpu")
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jp), tc))
     prompts = _prompts(8, tc.vocab_size)
     jloop = JS.ServeLoop(jc, jp, batch_slots=4, max_len=64)
@@ -75,7 +75,7 @@ def test_serve_loop_generates_the_same_tokens(arch):
 
 def test_pinned_commit_is_not_torn_by_a_later_checkpoint():
     cfg = dataclasses.replace(get_smoke_config("phi4_mini_3b"), **F32)
-    model = Model(cfg).init_params(torch.Generator().manual_seed(0))
+    model = Model(cfg, device="cpu").init_params(torch.Generator().manual_seed(0))
     params = model.state_dict()
     catalog = Catalog()
     ckpt = CheckpointManager(catalog)

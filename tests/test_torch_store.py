@@ -63,6 +63,33 @@ def test_reads_blobs_that_repro_wrote():
         assert _bits_equal(store.get_tensor(key), t)
 
 
+def test_bf16_table_column_is_refused():
+    """A lake ``repro`` wrote with a bfloat16 column: the port's tables
+    hold numpy arrays, which have no bfloat16 without ``ml_dtypes``, so
+    loading the table raises, naming ROADMAP, and the other columns of
+    such a lake still read."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.core.store import MemoryStore as JaxStore
+    from repro.data.tables import Table as JaxTable
+    from repro_torch.data.tables import Table
+
+    jstore = JaxStore()
+    f32 = np.arange(4, dtype=np.float32)
+    key = JaxTable({"x": np.asarray(jnp.asarray(f32, jnp.bfloat16)),
+                    "y": f32}).to_blobs(jstore)
+    store = MemoryStore()
+    for k in jstore.keys():
+        assert store.put(jstore.get(k)) == k
+    with pytest.raises(TypeError, match="ROADMAP"):
+        Table.from_blobs(store, key)
+    cols = store.get_json(key)["columns"]
+    assert cols["x"]["dtype"] == "bfloat16"
+    np.testing.assert_array_equal(store.get_array(cols["y"]["values"]), f32)
+    assert torch.equal(store.get_tensor(cols["x"]["values"]),
+                       torch.from_numpy(f32).bfloat16())
+
+
 class _State(NamedTuple):
     step: torch.Tensor
     mu: dict
