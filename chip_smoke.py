@@ -7,10 +7,10 @@ Phases, each of which must pass (any failure raises and exits non-zero
 before the result line):
 
 1. card: name and power limit, as ``nvidia-smi`` reports them;
-2. build: ``nvcc`` compiles the four CUDA sources for sm_90a, in
+2. build: ``nvcc`` compiles the five CUDA sources for sm_90a, in
    parallel (``segment_sum.cu``, ``hash_probe.cu``,
-   ``flash_attention.cu``, ``rglru_scan.cu``); the build times and
-   ptxas's register reports;
+   ``flash_attention.cu``, ``rglru_scan.cu``, ``mlstm_chunkwise.cu``);
+   the build times and ptxas's register reports;
 3. kernels: each CUDA kernel against its plain PyTorch version on the
    card, at the slice's shapes. The segment kernels at n = 6,001,215
    rows, S = 4 as in Q1 and S = 1.5M as in Q18, over
@@ -60,7 +60,28 @@ before the result line):
       the prefill's K/V of the last 2048 positions against the decode
       ring cache (float32 activations over the same weights; the
       tolerances are ``PREFILL_DECODE_LOGITS_RTOL`` and
-      ``PREFILL_DECODE_KV_RTOL``).
+      ``PREFILL_DECODE_KV_RTOL``);
+7. xlstm-350m (arXiv:2405.04517 as ``repro_torch/configs/xlstm_350m.py``
+   configures it: 24 layers, (mlstm, slstm) x 12, d_model 1024, 4 heads,
+   head dim 256, vocab 50,304 tied):
+   a. the chunkwise mLSTM kernel against its plain version (the
+      sequential recurrence) at the prefill's shape (B*H = 16, S = 2048,
+      hd = 256, bf16) and edge cases, within ``MLSTM_TOL`` and
+      ``MLSTM_REL``, with times, the bound, registers and spills; and the
+      control: the plain version with its products' operands rounded to
+      TF32 and to bf16 must fail ``MLSTM_REL``;
+   b. ``repro_torch.launch.serve.main`` with ``--arch xlstm_350m`` on the
+      card;
+   c. the full config, weights drawn on the card from ``--seed``: a
+      prefill of 4 prompts x 2048 tokens through ``forward(mode=
+      "last_logits", return_kv=True)``, cold and warm; finite logits, 12
+      mLSTM launches per forward and no flash or RG-LRU launch, tokens/s,
+      peak memory and the device profile;
+   d. one prompt of ``XLSTM_LONG_PROMPT`` tokens, prefill ``last_logits``
+      (the kernel path) against as many teacher-forced ``decode_step``s
+      (kernel-free), float32 activations over the same weights: argmax
+      equal, logits within ``XLSTM_PREFILL_DECODE_RTOL``;
+   e. ``ServeLoop`` with the launcher's defaults: decode step ms.
 
 The last two lines of standard output are one JSON object of the
 kernels' numbers, then ``{"ok": true, "device": {...}}``.
@@ -97,6 +118,7 @@ REPLACES = {
     "masked_hash_probe": "src/repro/kernels/hash_join/kernel.py:146",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:86",
     "rglru_scan": "src/repro/kernels/rglru/kernel.py:52",
+    "mlstm_chunkwise": "src/repro/kernels/mlstm/kernel.py:83",
 }
 SOURCES = {
     "masked_segment_sum":
@@ -109,6 +131,8 @@ SOURCES = {
     "flash_attention":
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
     "rglru_scan": "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
+    "mlstm_chunkwise":
+        "src/repro_torch/kernels/mlstm/csrc/mlstm_chunkwise.cu",
 }
 PROBE_SLOTS = 1 << 23           # the SF1 orderkey span, to a power of two
 Q18_JOIN_LANES = 1_500_000      # Q18's outer join probes one lane per order
@@ -135,6 +159,24 @@ PREFILL_DECODE_KV_RTOL = 2e-2
 # step, at most 2^-7 of the value; the atol covers the float32 order on
 # outputs near zero.
 FLASH_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2 ** -7, 1e-5)}
+XLSTM = "xlstm_350m"
+XLSTM_BATCH, XLSTM_LEN = 4, 2048   # the xLSTM paper's training context
+XLSTM_LONG_PROMPT = 1024           # four of repro's 256-token chunks
+XLSTM_PREFILL = f"xlstm_prefill_{XLSTM_BATCH}x{XLSTM_LEN}"
+# The mLSTM kernel (chunkwise form, float32) against its plain version
+# (the sequential recurrence, float32), as torch.allclose's (rtol, atol):
+# repro's own tolerance for the two forms (tests/test_kernels.py). Inputs
+# in bf16 are cast to float32 on entry on both sides.
+MLSTM_TOL = (2e-4, 2e-4)
+# ... and max|kernel - plain| / max|plain|. A typical |h| is ~5e-3 at the
+# main case's draw, so MLSTM_TOL alone would pass products rounded to
+# TF32 or bf16, which change the results; this gate must not, and the
+# main case shows it on a control (mlstm_rounded).
+MLSTM_REL = 1e-5
+# xlstm prefill (the mLSTM kernel) against teacher-forced decode (the
+# plain chunk on one token), float32 activations, both float32 all
+# through: max|prefill - decode| / max|decode| of the last logits.
+XLSTM_PREFILL_DECODE_RTOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -674,11 +716,13 @@ def phase_queries(torch, np, data, seed: int):
 # ---------------------------------------------------------------------------
 
 def model_wrappers():
-    """The model path's two kernel wrappers, by kernel name."""
+    """The model path's three kernel wrappers, by kernel name."""
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.mlstm import ops as mops
     from repro_torch.kernels.rglru import ops as rops
     return {"flash_attention": fops.flash_attention,
-            "rglru_scan": rops.rglru_scan}
+            "rglru_scan": rops.rglru_scan,
+            "mlstm_chunkwise": mops.mlstm}
 
 
 def reset_model_launches() -> None:
@@ -812,24 +856,25 @@ def phase_model_kernels(torch, ptxas: dict):
     return rows
 
 
-def phase_launcher(torch) -> dict:
-    """6b: ``repro_torch.launch.serve`` on the card, smoke config."""
+def phase_launcher(torch, arch: str = ARCH) -> dict:
+    """6b and 7b: ``repro_torch.launch.serve`` on the card, smoke
+    config."""
     from repro_torch.launch import serve
     reset_model_launches()
     t0 = time.perf_counter()
-    rc = serve.main(["--arch", ARCH, "--device", DEVICE])
+    rc = serve.main(["--arch", arch, "--device", DEVICE])
     torch.cuda.synchronize()
     launches = read_model_launches()
     expect(rc == 0, "the launcher returned", rc)
-    log(f"launcher: rc={rc} wall_s={time.perf_counter() - t0:.3f} "
+    log(f"launcher {arch}: rc={rc} wall_s={time.perf_counter() - t0:.3f} "
         f"launches {json.dumps(launches)}")
     return launches
 
 
-def full_model(torch, seed: int):
+def full_model(torch, seed: int, arch: str = ARCH):
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     g = torch.Generator(device=DEVICE)
     g.manual_seed(seed)
@@ -837,21 +882,33 @@ def full_model(torch, seed: int):
     torch.cuda.synchronize()
     nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
     kinds = [b.kind for b in model.layers]
-    log(f"model: {cfg.name} layers={cfg.num_layers} "
-        f"(local {kinds.count('local')}, rglru {kinds.count('rglru')}) "
+    counts = ", ".join(f"{k} {kinds.count(k)}" for k in sorted(set(kinds)))
+    log(f"model: {cfg.name} layers={cfg.num_layers} ({counts}) "
         f"d_model={cfg.d_model} params {nbytes / 1e9:.3f} GB, drawn in "
         f"{time.perf_counter() - t0:.2f} s")
     return cfg, model
 
 
-def phase_prefill(torch, cfg, model, seed: int) -> dict:
-    """6c: the serving prefill at full width and depth."""
-    n_local = sum(b.kind == "local" for b in model.layers)
-    n_rglru = sum(b.kind == "rglru" for b in model.layers)
-    expect((n_local, n_rglru) == (12, 26), "layer kinds", n_local, n_rglru)
+def forward_launches(model) -> dict:
+    """The kernel launches of one prefill forward, from the layer kinds:
+    one flash call per attention block, one scan per RG-LRU block, one
+    mLSTM call per mLSTM block."""
+    kinds = [b.kind for b in model.layers]
+    return {"flash_attention": sum(k in ("attn", "local") for k in kinds),
+            "rglru_scan": kinds.count("rglru"),
+            "mlstm_chunkwise": kinds.count("mlstm")}
+
+
+def phase_prefill(torch, cfg, model, seed: int, want: dict,
+                  batch: int = PREFILL_BATCH, length: int = PREFILL_LEN,
+                  label: str = "prefill") -> dict:
+    """6c and 7c: the serving prefill at full width and depth; ``want``
+    the launches per forward, by kernel."""
+    expect(forward_launches(model) == want, "layer kinds",
+           forward_launches(model), want)
     g = torch.Generator(device=DEVICE)
     g.manual_seed(seed + 1)
-    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN),
+    tokens = torch.randint(0, cfg.vocab_size, (batch, length),
                            generator=g, device=DEVICE)
     out = {}
     for run in ("cold", "warm"):
@@ -862,19 +919,17 @@ def phase_prefill(torch, cfg, model, seed: int) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_model_launches()
-        expect(launches == {"flash_attention": n_local,
-                            "rglru_scan": n_rglru},
-               "launches per forward", launches)
-        expect(logits.shape == (PREFILL_BATCH, 1, cfg.padded_vocab)
+        expect(launches == want, "launches per forward", launches)
+        expect(logits.shape == (batch, 1, cfg.padded_vocab)
                and logits.dtype == torch.float32, "logits", logits.shape)
         expect(bool(torch.isfinite(logits).all()), "non-finite logits")
         live = [kv for kv in kvs if kv is not None]
-        expect(len(live) == n_local and all(
-            kv[0].shape == (PREFILL_BATCH, 1, PREFILL_LEN, cfg.head_dim)
+        expect(len(live) == want["flash_attention"] and all(
+            kv[0].shape == (batch, cfg.num_kv_heads, length, cfg.head_dim)
             for kv in live), "prefill K/V")
         peak = torch.cuda.max_memory_allocated()
-        toks = PREFILL_BATCH * PREFILL_LEN
-        log(f"prefill {run}: {PREFILL_BATCH}x{PREFILL_LEN} tokens in "
+        toks = batch * length
+        log(f"{label} {run}: {batch}x{length} tokens in "
             f"{wall:.4f} s = {toks / wall:.1f} tokens/s; launches "
             f"{json.dumps(launches)}; peak memory {peak / 1e9:.3f} GB; "
             f"argmax {logits[:, 0, :cfg.vocab_size].argmax(-1).tolist()}")
@@ -882,19 +937,20 @@ def phase_prefill(torch, cfg, model, seed: int) -> dict:
                "peak_gb": peak / 1e9, "launches": launches}
         del logits, kvs
     out["profile"] = profile_device(
-        torch, "prefill", lambda: model(tokens, mode="last_logits"))
+        torch, label, lambda: model(tokens, mode="last_logits"))
     return out
 
 
 def profile_device(torch, label: str, fn) -> dict | None:
     """Device time by kernel, and the device's busy share, over one call
     of ``fn`` (a diagnostic: no check depends on it). Only the profiler
-    may fail quietly; a failure of ``fn`` fails the run."""
-    try:                        # the profiler is untried on this machine
+    may fail quietly; a failure of ``fn`` fails the run. It traces the
+    card alone: the host operators' trace is not read, and for a call of
+    ~500,000 small kernels (xlstm's prefill) it takes minutes to read."""
+    try:
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
-        prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA])
+        prof = profile(activities=[ProfilerActivity.CUDA])
         prof.start()
     except Exception as e:
         log(f"{label} profile: not measured ({type(e).__name__}: {e})")
@@ -924,7 +980,8 @@ def profile_device(torch, label: str, fn) -> dict | None:
     busy = sum(r[0] for r in rows) / 1e6
     n = sum(r[2] for r in rows)
     log(f"{label} profile: wall {wall:.4f} s, {n} device ops busy "
-        f"{busy:.4f} s ({100 * busy / wall:.1f}% of the wall time)")
+        f"{busy:.4f} s ({100 * busy / wall:.1f}% of the wall time); trace "
+        f"read in {time.perf_counter() - t0 - wall:.1f} s")
     for dev_us, key, count in rows[:12]:
         log(f"{label} profile: {dev_us / 1e3:9.3f} ms  x{count:<5d} "
             f"{key[:90]}")
@@ -932,8 +989,9 @@ def profile_device(torch, label: str, fn) -> dict | None:
             "top": [(k[:90], us / 1e3, c) for us, k, c in rows[:12]]}
 
 
-def phase_serve_loop(torch, np, cfg, model, seed: int) -> dict:
-    """6e: continuous batching at full width with the launcher's
+def phase_serve_loop(torch, np, cfg, model, seed: int,
+                     label: str = "serve loop") -> dict:
+    """6e and 7e: continuous batching at full width with the launcher's
     defaults."""
     from repro_torch.serving.serve_loop import Request, ServeLoop
     loop = ServeLoop(cfg, model, batch_slots=4, max_len=128)
@@ -958,7 +1016,7 @@ def phase_serve_loop(torch, np, cfg, model, seed: int) -> dict:
            "a token outside the vocabulary")
     slot_tokens = steps * loop.B
     generated = sum(len(r.out) for r in reqs)
-    log(f"serve loop: {len(reqs)} requests, {loop.B} slots, {steps} timed "
+    log(f"{label}: {len(reqs)} requests, {loop.B} slots, {steps} timed "
         f"steps in {wall:.3f} s = {1e3 * wall / steps:.2f} ms per decode "
         f"step, {slot_tokens / wall:.1f} slot-tokens/s, {generated} "
         f"generated tokens; launches {json.dumps(launches)}; first outputs "
@@ -971,7 +1029,7 @@ def phase_serve_loop(torch, np, cfg, model, seed: int) -> dict:
         for _ in range(5):
             _, caches = model.decode_step(tokens, caches)
 
-    prof = profile_device(torch, "decode 5 steps", five_steps)
+    prof = profile_device(torch, f"{label} decode 5 steps", five_steps)
     return {"decode_step_ms": 1e3 * wall / steps, "steps": steps,
             "slot_tokens_per_s": slot_tokens / wall, "launches": launches,
             "profile": prof}
@@ -987,11 +1045,16 @@ def ring_from_prefill(torch, kv, window: int):
     return ring
 
 
-def phase_prefill_vs_decode(torch, cfg, model, seed: int) -> dict:
-    """6d: the kernel path (prefill: flash + RG-LRU scan) against the
-    kernel-free path (decode: one-token softmax, one recurrence step) on
-    one prompt of LONG_PROMPT tokens, in float32 activations over the
-    same weights (upcast once; bfloat16 to float32 is exact)."""
+def phase_prefill_vs_decode(torch, cfg, model, seed: int,
+                            length: int = LONG_PROMPT,
+                            rtol: float = PREFILL_DECODE_LOGITS_RTOL,
+                            label: str = "prefill vs decode") -> dict:
+    """6d and 7d: the kernel path (prefill: flash + RG-LRU scan, or the
+    mLSTM kernel) against the kernel-free path (decode: one-token
+    softmax, one recurrence step) on one prompt of ``length`` tokens, in
+    float32 activations over the same weights (upcast once; bfloat16 to
+    float32 is exact). The prefill's K/V of an attention layer are held
+    against the decode's ring cache."""
     import dataclasses
     from repro_torch.models.model import Model
     cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
@@ -999,7 +1062,7 @@ def phase_prefill_vs_decode(torch, cfg, model, seed: int) -> dict:
     m32.load_state_dict(model.state_dict())
     g = torch.Generator(device=DEVICE)
     g.manual_seed(seed + 2)
-    tokens = torch.randint(0, cfg.vocab_size, (1, LONG_PROMPT), generator=g,
+    tokens = torch.randint(0, cfg.vocab_size, (1, length), generator=g,
                            device=DEVICE)
     reset_model_launches()
     t0 = time.perf_counter()
@@ -1007,9 +1070,9 @@ def phase_prefill_vs_decode(torch, cfg, model, seed: int) -> dict:
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     launches = read_model_launches()
-    caches = m32.init_cache(1, LONG_PROMPT)
+    caches = m32.init_cache(1, length)
     t0 = time.perf_counter()
-    for t in range(LONG_PROMPT):
+    for t in range(length):
         logits, caches = m32.decode_step(tokens[:, t:t + 1], caches)
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
@@ -1017,21 +1080,20 @@ def phase_prefill_vs_decode(torch, cfg, model, seed: int) -> dict:
     p, d = want_logits[0, 0, :V], logits[0, 0, :V]
     err = rel_err(torch, p, d)
     top2 = torch.topk(d, 2).values
-    log(f"prefill vs decode: {LONG_PROMPT} tokens; prefill {prefill_s:.3f} s "
-        f"(launches {json.dumps(launches)}), {LONG_PROMPT} decode steps "
-        f"{decode_s:.3f} s ({1e3 * decode_s / LONG_PROMPT:.2f} ms/step); "
+    log(f"{label}: {length} tokens; prefill {prefill_s:.3f} s "
+        f"(launches {json.dumps(launches)}), {length} decode steps "
+        f"{decode_s:.3f} s ({1e3 * decode_s / length:.2f} ms/step); "
         f"argmax {int(p.argmax())} vs {int(d.argmax())}, top-2 margin "
         f"{float(top2[0] - top2[1]):.5f}; logits rel err {err:.3e}")
     expect(int(p.argmax()) == int(d.argmax()), "prefill and decode argmax "
            "differ")
-    expect(err <= PREFILL_DECODE_LOGITS_RTOL, "prefill vs decode logits",
-           err)
+    expect(err <= rtol, label, "logits", err)
     kv_errs = []
     for i, kv in enumerate(kvs):
         if kv is None:
             continue
         cache = caches[i]["attn"]
-        expect(cache["len"] == LONG_PROMPT, "cache length", cache["len"])
+        expect(cache["len"] == length, "cache length", cache["len"])
         window = cache["k"].shape[2]
         for name, pre, dec in (("k", kv[0], cache["k"]),
                                ("v", kv[1], cache["v"])):
@@ -1039,13 +1101,14 @@ def phase_prefill_vs_decode(torch, cfg, model, seed: int) -> dict:
             kv_errs.append(e)
             expect(e <= PREFILL_DECODE_KV_RTOL, f"layer {i} {name}: prefill "
                    f"K/V vs the decode ring", e)
-    log(f"prefill vs decode: K/V of the last {window} positions in "
-        f"{len(kv_errs) // 2} local layers match the decode ring; max rel "
-        f"err {max(kv_errs):.3e}")
+    if kv_errs:
+        log(f"{label}: K/V of the last {window} positions in "
+            f"{len(kv_errs) // 2} local layers match the decode ring; max "
+            f"rel err {max(kv_errs):.3e}")
     del m32, caches, kvs
     return {"prefill_s": prefill_s, "decode_step_ms":
-            1e3 * decode_s / LONG_PROMPT, "logits_rel_err": err,
-            "kv_rel_err": max(kv_errs), "launches": launches}
+            1e3 * decode_s / length, "logits_rel_err": err,
+            "kv_rel_err": max(kv_errs, default=None), "launches": launches}
 
 
 def phase_model(torch, np, seed: int) -> dict:
@@ -1053,9 +1116,173 @@ def phase_model(torch, np, seed: int) -> dict:
     and the log need."""
     out = {"launcher": phase_launcher(torch)}
     cfg, model = full_model(torch, seed)
-    out["prefill"] = phase_prefill(torch, cfg, model, seed)
+    out["prefill"] = phase_prefill(torch, cfg, model, seed, want={
+        "flash_attention": 12, "rglru_scan": 26, "mlstm_chunkwise": 0})
     out["serve"] = phase_serve_loop(torch, np, cfg, model, seed)
     out["long"] = phase_prefill_vs_decode(torch, cfg, model, seed)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7: xlstm-350m
+# ---------------------------------------------------------------------------
+
+MLSTM_MAIN = dict(BH=XLSTM_BATCH * 4, S=XLSTM_LEN, hd=256,   # 4 heads
+                  dtype="bfloat16", gates="paper")
+MLSTM_CASES = [
+    MLSTM_MAIN,                              # every mLSTM block's call
+    {**MLSTM_MAIN, "dtype": "float32"},
+    {**MLSTM_MAIN, "S": 64},                 # one tile
+    {**MLSTM_MAIN, "BH": 1},
+    {**MLSTM_MAIN, "hd": 64},
+    {**MLSTM_MAIN, "S": 2000},               # not a multiple of the tile
+    {**MLSTM_MAIN, "gates": "extreme"},
+]
+
+
+def mlstm_inputs(torch, case: dict, g):
+    """q, k ~ N(0, 1/hd), v ~ N(0, 1) in the case's dtype; ``paper``
+    gates as repro's tests draw them (log_i <= 0, log_f = log
+    sigmoid(N(2, 1))), ``extreme`` ones log_f in [-31, -29] and log_i in
+    [-10, 10]."""
+    import torch.nn.functional as F
+    BH, S, hd = case["BH"], case["S"], case["hd"]
+    dt = getattr(torch, case["dtype"])
+    n = lambda *shape: torch.randn(*shape, generator=g, device=DEVICE)
+    q = (n(BH, S, hd) / hd ** 0.5).to(dt)
+    k = (n(BH, S, hd) / hd ** 0.5).to(dt)
+    v = n(BH, S, hd).to(dt)
+    if case["gates"] == "extreme":
+        u = lambda lo, hi: lo + (hi - lo) * torch.rand(
+            BH, S, generator=g, device=DEVICE)
+        return q, k, v, u(-10.0, 10.0), u(-31.0, -29.0)
+    return q, k, v, -F.softplus(-n(BH, S)), -F.softplus(-n(BH, S) - 2.0)
+
+
+def mlstm_bound(case: dict, itemsize: int) -> dict:
+    """The least time for one call, whatever the tiling: per step the
+    state costs 4 hd^2 flops (q C and the update of C) and a tile of L
+    steps adds 2 hd (L + 1) for the two masked products over its lower
+    triangle, least at L = 1, so 4 hd^2 + 4 hd per (b*h, step) at the
+    float32 FMA peak; against q, k, v read once, the float32 gates read
+    and h written once."""
+    BH, S, hd = case["BH"], case["S"], case["hd"]
+    flops = BH * S * (4 * hd * hd + 4 * hd)
+    nbytes = BH * S * (3 * hd * itemsize + 2 * 4 + hd * 4)
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def tf32(torch, x):
+    """float32 x rounded to TF32's 10-bit mantissa, to nearest with
+    ties away from zero, as a float32 operand enters the tensor cores."""
+    bits_ = x.contiguous().view(torch.int32)
+    return ((bits_ + 0x1000) & -0x2000).view(torch.float32)
+
+
+def mlstm_rounded(torch, rnd, q, k, v, log_i, log_f):
+    """The control for ``MLSTM_REL``: the plain recurrence of
+    ``kernels/mlstm/ref.py`` with the operands of every product rounded
+    by ``rnd``, as a kernel with its products in TF32 or bf16 reads them."""
+    BH, S, hd = q.shape
+    q, k, v = rnd(q.float() * hd ** -0.5), rnd(k.float()), rnd(v.float())
+    C = torch.zeros(BH, hd, hd, device=q.device)
+    n = torch.zeros(BH, hd, device=q.device)
+    m = torch.zeros(BH, device=q.device)
+    out = torch.empty(BH, S, hd, device=q.device)
+    for t in range(S):
+        m_new = torch.maximum(log_f[:, t] + m, log_i[:, t])
+        i_p = torch.exp(log_i[:, t] - m_new)[:, None]
+        f_p = torch.exp(log_f[:, t] + m - m_new)[:, None]
+        C = f_p[..., None] * C + (i_p * k[:, t])[:, :, None] * v[:, t, None]
+        n = f_p * n + i_p * k[:, t]
+        num = torch.einsum("bde,bd->be", rnd(C), q[:, t])
+        den = torch.einsum("bd,bd->b", rnd(n), q[:, t]).abs()
+        out[:, t] = num / torch.maximum(den, torch.exp(-m_new))[:, None]
+        m = m_new
+    return out
+
+
+def mlstm_case(torch, case: dict, g):
+    """One mLSTM case: the kernel against the sequential recurrence,
+    repeatability, and times of the wrapper, the kernel and the plain
+    version; at the main case, the control of ``MLSTM_REL``."""
+    from repro_torch.kernels.mlstm import kernel, ops, ref
+    log(f"kernel check: mlstm_chunkwise {json.dumps(case)}")
+    args = mlstm_inputs(torch, case, g)
+    chunk = 256 if case["S"] % 256 == 0 else case["S"]
+    call = lambda: ops.mlstm(*args, chunk=chunk)
+    alone = lambda: kernel.mlstm_chunkwise(*args)
+    plain = lambda: ref.mlstm_ref(*args)
+    got, again, want = call(), alone(), plain()
+    torch.cuda.synchronize()
+    rtol, atol = MLSTM_TOL
+    err = float((got - want).abs().max())
+    peak = float(want.abs().max())
+    expect(got.dtype == torch.float32 and got.shape == args[0].shape,
+           "mLSTM output", got.dtype, got.shape)
+    expect(bool(torch.isfinite(got).all()), "mLSTM output not finite", case)
+    expect(torch.allclose(got, want, rtol=rtol, atol=atol),
+           "mLSTM kernel differs from its plain version", case, err)
+    expect(err <= MLSTM_REL * peak, "mLSTM kernel differs from its plain "
+           "version by more than MLSTM_REL of max|h|", case, err, peak)
+    expect(torch.equal(got, again), "mLSTM kernel not bitwise repeatable")
+    control = {}
+    if case == MLSTM_MAIN:
+        for name, rnd in (("tf32", lambda x: tf32(torch, x)),
+                          ("bf16", lambda x: x.bfloat16().float())):
+            wrong = mlstm_rounded(torch, rnd, *args)
+            rel = float((wrong - want).abs().max()) / peak
+            expect(rel > MLSTM_REL, f"the {name} control passes MLSTM_REL",
+                   rel)
+            control[f"control_{name}_rel_err"] = rel
+            del wrong
+    del got, again, want
+    return {
+        "op": "mlstm_chunkwise", **case, "max_abs_err": err,
+        "rel_err": err / peak, "max_abs_h": peak, **control,
+        "ms": cuda_ms(torch, call, reps=5),
+        "kernel_only_ms": cuda_ms(torch, alone, reps=5),
+        "plain_ms": cuda_ms(torch, plain, reps=2), "library_ms": None,
+        **mlstm_bound(case, args[0].element_size()),
+    }
+
+
+def mlstm_tag(case: dict) -> str:
+    """The mangled-name fragment of the instantiation a case runs."""
+    elem = {"bfloat16": "13__nv_bfloat16", "float32": "f"}[case["dtype"]]
+    return f"mlstm_chunkwise_kernelI{elem}Li{case['hd']}E"
+
+
+def phase_mlstm_kernels(torch, ptxas: dict):
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(3)
+    rows = []
+    for case in MLSTM_CASES:
+        rows.append({**mlstm_case(torch, case, g), **ptxas_of(
+            ptxas, "mlstm_chunkwise", mlstm_tag(case))})
+        log("kernel " + json.dumps(rows[-1]))
+    return rows
+
+
+def phase_xlstm(torch, np, seed: int) -> dict:
+    """7b-7e on one set of full-size xlstm-350m weights."""
+    out = {"launcher": phase_launcher(torch, XLSTM)}
+    cfg, model = full_model(torch, seed, XLSTM)
+    out["prefill"] = phase_prefill(
+        torch, cfg, model, seed, want={
+            "flash_attention": 0, "rglru_scan": 0, "mlstm_chunkwise": 12},
+        batch=XLSTM_BATCH, length=XLSTM_LEN, label="xlstm prefill")
+    out["long"] = phase_prefill_vs_decode(
+        torch, cfg, model, seed, length=XLSTM_LONG_PROMPT,
+        rtol=XLSTM_PREFILL_DECODE_RTOL, label="xlstm prefill vs decode")
+    out["serve"] = phase_serve_loop(torch, np, cfg, model, seed,
+                                    label="xlstm serve loop")
     del model
     torch.cuda.empty_cache()
     return out
@@ -1077,11 +1304,12 @@ def ptxas_kernels(report: str) -> dict:
 
 
 def build_all(args) -> dict:
-    """Build the four kernel libraries at once (one nvcc each) and report
+    """Build the five kernel libraries at once (one nvcc each) and report
     what ptxas says of each kernel; returns {library stem: {kernel:
     (registers, spill bytes)}}."""
     from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.hash_join import kernel as hkernel
+    from repro_torch.kernels.mlstm import kernel as mkernel
     from repro_torch.kernels.rglru import kernel as rkernel
     from repro_torch.kernels.segment_sum import kernel as skernel
 
@@ -1090,7 +1318,7 @@ def build_all(args) -> dict:
         lib, report = mod.build(ptxas_report=True)
         return lib, report, time.perf_counter() - t0
 
-    mods = (skernel, hkernel, fkernel, rkernel)
+    mods = (skernel, hkernel, fkernel, rkernel, mkernel)
     with ThreadPoolExecutor(max_workers=len(mods)) as pool:
         built = list(pool.map(timed, mods))
     found = {}
@@ -1107,6 +1335,23 @@ def build_all(args) -> dict:
                       "w") as f:
                 f.write(report)
     return found
+
+
+def xlstm_paths(xlstm: dict, name: str) -> dict:
+    """A kernel's launches on each path of phase 7."""
+    return {XLSTM_PREFILL: xlstm["prefill"]["launches"][name],
+            f"xlstm_prefill_{XLSTM_LONG_PROMPT}_f32":
+                xlstm["long"]["launches"][name],
+            "xlstm_serve_loop": xlstm["serve"]["launches"][name],
+            "xlstm_launcher": xlstm["launcher"][name]}
+
+
+def phase_done(name: str, since: float) -> float:
+    """Log the host seconds a phase took (against the script's 1200 s
+    limit); returns the clock for the next phase."""
+    now = time.perf_counter()
+    log(f"phase {name}: {now - since:.1f} s")
+    return now
 
 
 def main() -> int:
@@ -1136,6 +1381,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 1. card
+    clock = time.perf_counter()
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1143,6 +1389,7 @@ def main() -> int:
 
     # 2. build
     ptxas = build_all(args)
+    clock = phase_done("1-2 (card, build)", clock)
 
     # 3. kernels
     rows = phase_kernels(torch)
@@ -1155,6 +1402,8 @@ def main() -> int:
             for row in rows + probe_rows:
                 f.write(json.dumps(row) + "\n")
 
+    clock = phase_done("3 (lakehouse kernels)", clock)
+
     # 4. the slice, and 5. the query path, on one generated catalog
     t0 = time.perf_counter()
     data = generate(args.sf, args.seed)
@@ -1163,6 +1412,7 @@ def main() -> int:
         f"generated in {time.perf_counter() - t0:.2f} s")
     by_path = {"slice": phase_slice(torch, np, data, args.seed)}
     by_path.update(phase_queries(torch, np, data, args.seed))
+    clock = phase_done("4-5 (slice, queries)", clock)
 
     main_rows = {   # the heaviest shape each kernel gets on the main path
         "masked_segment_sum": ("sum", "int64", Q18_GROUPS),
@@ -1214,20 +1464,34 @@ def main() -> int:
                 f.write(json.dumps(row) + "\n")
     model = phase_model(torch, np, args.seed)
     log(f"model summary: {json.dumps(model)}")
-    for name, main_case in (("flash_attention", FLASH_MAIN),
-                            ("rglru_scan", RGLRU_MAIN)):
-        row = next(r for r in model_rows if r["op"] == name
+    clock = phase_done("6 (recurrentgemma-9b)", clock)
+
+    # 7. xlstm-350m
+    mlstm_rows = phase_mlstm_kernels(torch, ptxas)
+    if args.log_dir:
+        with open(os.path.join(args.log_dir, "kernels.jsonl"), "a") as f:
+            for row in mlstm_rows:
+                f.write(json.dumps(row) + "\n")
+    xlstm = phase_xlstm(torch, np, args.seed)
+    log(f"xlstm summary: {json.dumps(xlstm)}")
+    phase_done("7 (xlstm-350m)", clock)
+    for name, main_case, krows, main_path in (
+            ("flash_attention", FLASH_MAIN, model_rows, "prefill_4x4096"),
+            ("rglru_scan", RGLRU_MAIN, model_rows, "prefill_4x4096"),
+            ("mlstm_chunkwise", MLSTM_MAIN, mlstm_rows, XLSTM_PREFILL)):
+        row = next(r for r in krows if r["op"] == name
                    and all(r[k] == v for k, v in main_case.items()))
         by_path = {"prefill_4x4096": model["prefill"]["launches"][name],
                    "prefill_2304_f32": model["long"]["launches"][name],
                    "serve_loop": model["serve"]["launches"][name],
-                   "launcher": model["launcher"][name]}
+                   "launcher": model["launcher"][name],
+                   **xlstm_paths(xlstm, name)}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": by_path["prefill_4x4096"],
+            "launches": by_path[main_path],
             "launches_by_path": by_path,
-            "max_abs_err": max(r["max_abs_err"] for r in model_rows
+            "max_abs_err": max(r["max_abs_err"] for r in krows
                                if r["op"] == name),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

@@ -49,11 +49,12 @@ class ParamModule(nn.Module):
 
     ``specs`` maps each name to ``(shape, dtype, init)``, where ``init``
     is the standard deviation of a normal draw, or ``"ones"``,
-    ``"zeros"`` or ``("linspace", lo, hi)``, as ``repro`` initializes
-    that parameter. The tensors are allocated empty (on ``"meta"`` they
-    take no memory) and filled by :meth:`init_params`. Serving only: no
-    parameter requires a gradient. ``p["name"]`` and ``"name" in p`` work
-    as on ``repro``'s parameter dicts.
+    ``"zeros"``, ``("linspace", lo, hi)`` or ``("halves", a, b)`` (the
+    first half of a vector ``a``, the second ``b``), as ``repro``
+    initializes that parameter. The tensors are allocated empty (on
+    ``"meta"`` they take no memory) and filled by :meth:`init_params`.
+    Serving only: no parameter requires a gradient. ``p["name"]`` and
+    ``"name" in p`` work as on ``repro``'s parameter dicts.
     """
 
     def __init__(self, specs: Mapping[str, tuple], device=None):
@@ -81,6 +82,11 @@ class ParamModule(nn.Module):
                 p.fill_(1)
             elif init == "zeros":
                 p.zero_()
+            elif isinstance(init, tuple) and init[0] == "halves":
+                _, a, b = init
+                half = p.shape[0] // 2
+                p[:half].fill_(a)
+                p[half:].fill_(b)
             elif isinstance(init, tuple):
                 _, lo, hi = init
                 p.copy_(torch.linspace(lo, hi, p.shape[0], device=p.device))

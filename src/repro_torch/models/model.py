@@ -2,13 +2,14 @@
 
 The port of ``repro/models/model.py`` for the decoder-only families: each
 block's mixing sublayer is chosen by ``cfg.block_pattern`` (cycled over
-layers) — full attention, sliding-window attention or RG-LRU — followed
-by an MLP when ``d_ff > 0``. ``repro`` stacks the parameters of each
-repeat of the pattern and scans over them; the port keeps one module per
-layer, in order, and loops (``convert.params_from_jax`` unstacks
-``repro``'s parameters into it). Mixture-of-experts FFNs, mLSTM/sLSTM
-blocks, the audio encoder and the vision front end are not ported yet
-and raise ``NotImplementedError`` (ROADMAP Queue 1 item 9).
+layers) — full attention, sliding-window attention, RG-LRU, mLSTM or
+sLSTM — followed by an MLP when ``d_ff > 0``. ``repro`` stacks the
+parameters of each repeat of the pattern and scans over them; the port
+keeps one module per layer, in order, and loops
+(``convert.params_from_jax`` unstacks ``repro``'s parameters into it).
+Mixture-of-experts FFNs, the audio encoder and the vision front end are
+not ported yet and raise ``NotImplementedError`` (ROADMAP Queue 1 item
+9).
 
 Entry points, as in ``repro``:
 
@@ -29,16 +30,23 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as R
+from repro_torch.models import xlstm as X
 
 __all__ = ["Block", "Model", "unsupported"]
 
 _ATTN = ("attn", "local")
+# the recurrent mixers: parameter specs, forward, state init
+_RECURRENT = {
+    "rglru": (R.rglru_params, R.rglru_forward, R.rglru_state_init),
+    "mlstm": (X.mlstm_params, X.mlstm_forward, X.mlstm_state_init),
+    "slstm": (X.slstm_params, X.slstm_forward, X.slstm_state_init),
+}
 
 
 def unsupported(cfg: ModelConfig) -> str | None:
     """Why the port cannot run ``cfg`` yet, or None if it can."""
     missing = sorted({k for k in cfg.block_pattern
-                      if k not in _ATTN + ("rglru",)})
+                      if k not in _ATTN + tuple(_RECURRENT)})
     if missing:
         return f"{'/'.join(missing)} blocks"
     if cfg.moe is not None:
@@ -51,8 +59,8 @@ def unsupported(cfg: ModelConfig) -> str | None:
 
 
 class Block(nn.Module):
-    """One layer: norm, mixing sublayer (attention or RG-LRU), residual;
-    then norm, MLP, residual when ``d_ff > 0``."""
+    """One layer: norm, mixing sublayer (attention, RG-LRU, mLSTM or
+    sLSTM), residual; then norm, MLP, residual when ``d_ff > 0``."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device=None):
         super().__init__()
@@ -60,7 +68,7 @@ class Block(nn.Module):
         norm = {"scale": ((cfg.d_model,), torch.float32, "ones")}
         self.norm1 = L.ParamModule(norm, device)
         self.mix = L.ParamModule(L.attention_params(cfg) if kind in _ATTN
-                                 else R.rglru_params(cfg), device)
+                                 else _RECURRENT[kind][0](cfg), device)
         if cfg.d_ff > 0:
             self.norm2 = L.ParamModule(norm, device)
             self.ffn = L.ParamModule(L.mlp_params(cfg), device)
@@ -83,8 +91,9 @@ class Block(nn.Module):
             else:
                 mixed = L.attention_forward(self.mix, h, cfg, kind=self.kind)
         else:
-            mixed, st = R.rglru_forward(self.mix, h, cfg,
-                                        cache["rec"] if decode else None)
+            forward = _RECURRENT[self.kind][1]
+            mixed, st = forward(self.mix, h, cfg,
+                                cache["rec"] if decode else None)
             if decode:
                 new_cache = dict(cache, rec=st)
         x = x + mixed
@@ -128,8 +137,10 @@ class Model(L.ParamModule):
     def init_params(self, generator: torch.Generator) -> "Model":
         """Draw every weight from ``generator`` with ``repro``'s scales:
         ``1/sqrt(fan_in)`` for matrices, 0.02 for the embedding and LM
-        head, 0.1 for the conv, 0.01 for the float32 RG-LRU gates,
-        ``linspace(2, 6)`` for Λ, ones for the norms."""
+        head, 0.1 for the conv, 0.01 for the float32 RG-LRU and mLSTM
+        gates, 0.05 for the sLSTM's recurrence, ``linspace(2, 6)`` for Λ,
+        the mLSTM's gate biases 0 (input) and 3 (forget), ones for the
+        norms."""
         for m in self.modules():
             if isinstance(m, L.ParamModule):
                 L.ParamModule.init_params(m, generator)
@@ -172,7 +183,8 @@ class Model(L.ParamModule):
     def init_cache(self, batch: int, max_len: int) -> list[dict]:
         """Per-layer decode caches: a KV ring buffer of ``max_len`` slots
         (``min(max_len, local_window)`` for a local block) in
-        ``cfg.kv_dtype``, or the RG-LRU's conv tail and state."""
+        ``cfg.kv_dtype``, or a recurrent block's state (the RG-LRU's conv
+        tail and h; the mLSTM's C, n, m; the sLSTM's c, n, m, h)."""
         cfg, dev = self.cfg, self.device
         caches = []
         for layer in self.layers:
@@ -183,7 +195,8 @@ class Model(L.ParamModule):
                     cfg, batch, size, dtype=getattr(torch, cfg.kv_dtype),
                     device=dev)})
             else:
-                caches.append({"rec": R.rglru_state_init(cfg, batch, dev)})
+                init = _RECURRENT[layer.kind][2]
+                caches.append({"rec": init(cfg, batch, dev)})
         return caches
 
     @torch.no_grad()

@@ -47,7 +47,9 @@ def test_the_scan_sees_the_package():
     assert {"repro_torch.models.model", "repro_torch.serving.serve_loop",
             "repro_torch.launch.serve", "repro_torch.configs.base",
             "repro_torch.kernels.flash_attention.ops",
-            "repro_torch.kernels.rglru.ops"} <= set(MODULES)
+            "repro_torch.kernels.rglru.ops",
+            "repro_torch.kernels.mlstm.ops", "repro_torch.kernels.mlstm.kernel",
+            "repro_torch.models.xlstm"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("path", FILES,

@@ -44,6 +44,7 @@ from repro_torch.models.model import Model, unsupported  # noqa: E402
 
 F32 = dict(dtype="float32", param_dtype="float32")
 RG = dict(num_layers=5, local_window=16)      # 2 tail layers, windows crossed
+XL = dict(num_layers=4)                       # (mlstm, slstm) x 2
 S = 48
 DECODE_STEPS = 60
 MAX_LEN = 40          # the attn ring wraps within 60 steps; local is 16
@@ -229,8 +230,9 @@ def _decode_both(jc, jp, model, tokens):
 
 
 @pytest.mark.parametrize("arch,over", [("recurrentgemma_9b", RG),
-                                       ("phi4_mini_3b", {})],
-                         ids=["recurrentgemma", "phi4-mini"])
+                                       ("phi4_mini_3b", {}),
+                                       ("xlstm_350m", XL)],
+                         ids=["recurrentgemma", "phi4-mini", "xlstm"])
 def test_forward_float32(arch, over):
     jc, tc, jp, model = _models(arch, {**over, **F32})
     tok = _tokens((2, S), 1)
@@ -265,8 +267,9 @@ def test_forward_float32(arch, over):
 
 
 @pytest.mark.parametrize("arch,over", [("recurrentgemma_9b", RG),
-                                       ("phi4_mini_3b", {})],
-                         ids=["recurrentgemma", "phi4-mini"])
+                                       ("phi4_mini_3b", {}),
+                                       ("xlstm_350m", XL)],
+                         ids=["recurrentgemma", "phi4-mini", "xlstm"])
 def test_decode_steps_float32(arch, over):
     jc, tc, jp, model = _models(arch, {**over, **F32}, seed=1)
     tok = _tokens((2, DECODE_STEPS), 2)
@@ -275,8 +278,9 @@ def test_decode_steps_float32(arch, over):
 
 
 @pytest.mark.parametrize("arch,over", [("recurrentgemma_9b", RG),
-                                       ("phi4_mini_3b", {})],
-                         ids=["recurrentgemma", "phi4-mini"])
+                                       ("phi4_mini_3b", {}),
+                                       ("xlstm_350m", XL)],
+                         ids=["recurrentgemma", "phi4-mini", "xlstm"])
 def test_bfloat16_config_logits_and_greedy_tokens(arch, over):
     jc, tc, jp, model = _models(arch, over, seed=2)
     assert tc.dtype == tc.param_dtype == "bfloat16"
@@ -320,6 +324,32 @@ def test_params_from_jax_unstacks_layers_in_order():
         + ["rglru", "rglru"]
 
 
+def test_xlstm_forward_crosses_repros_chunk():
+    """S = 512: repro scans two chunks of 256 and carries the mLSTM state
+    between them; the port's kernel path walks S in its own tiles."""
+    jc, tc, jp, model = _models("xlstm_350m", {**XL, **F32}, seed=3)
+    tok = _tokens((1, 512), 5)
+    want, _ = jax.jit(lambda t: JM.forward(jp, jc, t))(jnp.asarray(tok))
+    got, _ = model(torch.from_numpy(tok))
+    _close(got, want, 1e-4)
+
+
+def test_params_from_jax_unstacks_xlstm_slots():
+    jc, tc, jp, model = _models("xlstm_350m", {**XL, **F32})
+    sd = model.state_dict()
+    assert [b.kind for b in model.layers] == ["mlstm", "slstm"] * 2
+    # layer 2 is the second repeat of slot 0 (mlstm), layer 3 of slot 1
+    for i, slot, rep, names in ((2, 0, 1, ("w_if", "b_if", "wq", "wo")),
+                                (3, 1, 1, ("r", "w_in", "b", "w_out")),
+                                (1, 1, 0, ("r",))):
+        for name in names:
+            np.testing.assert_array_equal(
+                sd[f"layers.{i}.mix.{name}"].numpy(),
+                np.asarray(jp["slots"][slot]["mix"][name][rep]))
+    assert "layers.0.mix.r" not in sd and "layers.1.mix.wq" not in sd
+    assert sd["layers.1.mix.r"].dtype == torch.float32
+
+
 def test_init_params_follows_repro_scales():
     cfg = dataclasses.replace(get_smoke_config("recurrentgemma_9b"), **F32)
     model = Model(cfg, device="cpu").init_params(
@@ -357,8 +387,8 @@ def test_model_lives_on_the_card_unless_asked_for_the_cpu():
     assert Model(cfg, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("arch", ["xlstm_350m", "granite_moe_3b",
-                                  "whisper_medium", "phi3_vision_4b"])
+@pytest.mark.parametrize("arch", ["granite_moe_3b", "whisper_medium",
+                                  "phi3_vision_4b"])
 def test_unported_families_raise(arch):
     cfg = get_smoke_config(arch)
     assert unsupported(cfg) is not None

@@ -51,7 +51,8 @@ def _prompts(n, vocab, seed=0):
             for _ in range(n)]
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "phi4_mini_3b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "phi4_mini_3b",
+                                  "xlstm_350m"])
 def test_serve_loop_generates_the_same_tokens(arch):
     jc = dataclasses.replace(jax_smoke(arch), **F32)
     tc = dataclasses.replace(get_smoke_config(arch), **F32)
@@ -133,7 +134,8 @@ def test_reads_a_checkpoint_that_repro_wrote(tmp_path, dtype):
     assert leaves[0].dtype == torch.int32 and int(leaves[0]) == 0   # step
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "phi4_mini_3b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "phi4_mini_3b",
+                                  "xlstm_350m"])
 def test_launcher_runs_on_the_cpu(arch, capsys):
     assert serve.main(["--arch", arch, "--device", "cpu", "--requests", "4",
                        "--max-new", "4"]) == 0
