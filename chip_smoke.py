@@ -13,11 +13,17 @@ before the result line):
    the build times and ptxas's register reports;
 3. kernels: each CUDA kernel against its plain PyTorch version on the
    card, at the slice's shapes. The segment kernels at n = 6,001,215
-   rows, S = 4 as in Q1 and S = 1.5M as in Q18, over
-   int8/int32/int64/float32/float64 with invalid lanes, out-of-range
+   rows, S = 4 as in Q1 and S = 1.5M as in Q18, SUM over every integer
+   dtype (int8/int16/int32/int64/uint8, values over the whole range, so
+   the sums wrap) and float32/float64, MIN/MAX over
+   int8/int32/int64/float32/float64, with invalid lanes, out-of-range
    ids, NaNs, empty segments and tied ``±0.0``: integers, counts and
-   MIN/MAX bit for bit (the sign of a zero included), float sums within
-   the tolerance below and bitwise across two launches. The probe
+   MIN/MAX bit for bit (the sign of a zero included) and across two
+   launches, float sums within the tolerance below and bitwise across
+   two launches; the int64 SUM at S = 1.5M again with the ids in
+   runs, as Q18's orders lie in lineitem, and at S = 175, as in Q9. A row times the wrapper, and
+   apart its two steps: the run-order partition (float SUM, MIN/MAX) and
+   the reduction kernel. The probe
    kernels at n = 6,001,215 and n = 1,500,000 lanes into a table of
    T = 2^23 slots, with out-of-range lanes (negative, >= T, the int32
    sentinel), empty slots, duplicate keys and masked lanes, bit for bit;
@@ -44,13 +50,18 @@ before the result line):
    d_model 4096, 16 heads, one kv head, head dim 256, window 2048):
    a. the flash attention and RG-LRU scan kernels against their plain
       versions at the prefill's shapes (B=4, S=4096) and edge cases,
-      with times, bounds and the library yardstick;
+      with times, bounds and the library yardstick; each flash case
+      names the kernel it ran (``wgmma`` for bf16 at hd 64/128/256,
+      ``simt`` otherwise), the main case must run ``wgmma`` with no
+      spill, and its control, the plain version with P rounded to one
+      bf16 part before P V, must fail ``FLASH_TOL``;
    b. ``repro_torch.launch.serve.main`` on the card: the pinned-commit
       flow at the smoke config, as ``repro``'s launcher runs it;
    c. the full config, weights drawn on the card from ``--seed``: a
       prefill of 4 prompts x 4096 tokens through ``forward(mode=
-      "last_logits", return_kv=True)``; finite logits, 12 flash and 26
-      RG-LRU launches per forward, tokens/s and peak memory;
+      "last_logits", return_kv=True)``; finite logits, 12 flash (all of
+      them the wgmma kernel) and 26 RG-LRU launches per forward,
+      tokens/s and peak memory;
    e. ``ServeLoop`` at the full config with the launcher's defaults (8
       requests, 4 slots, prompts of 4-12 tokens, 16 new tokens): decode
       step ms and tokens/s;
@@ -100,6 +111,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
 N_ROWS = 6_001_215              # lineitem rows at TPC-H SF1
 Q18_GROUPS = 1_500_000          # orders at SF1: Q18's group count
+Q9_GROUPS = 175                 # TPC-H Q9's (nation, year) groups: the
+                                # integer SUM's shared-bin shape
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA's data sheet
 # Float SUM tolerance per segment, as a multiple of sum(|v|) over the
 # segment's valid lanes. Kernel and plain version both add in the value
@@ -224,6 +237,8 @@ def make_inputs(torch, dtype, num_segments: int, kind: str, g):
     r = torch.rand(n, generator=g, device=dev)
     ids[r < 5e-4] = -1                       # out of range: contribute
     ids[r > 1 - 5e-4] = num_segments         # nothing
+    if kind == "runs":          # a group's rows together, as Q18's orders
+        ids = torch.sort(ids).values         # lie in lineitem
     valid = torch.rand(n, generator=g, device=dev) >= 0.1
     if dtype.is_floating_point:
         if kind == "zeros":                  # every tie is a signed zero
@@ -252,6 +267,7 @@ def bits(torch, t):
 def check_config(torch, kernel, ops, ref, op, dtype, num_segments, kind,
                  g):
     """One (op, dtype, S) case: parity, repeatability and times."""
+    from repro_torch.kernels.segment_sum.kernel import INT_DTYPES
     log(f"kernel check: {op} {str(dtype).split('.')[1]} S={num_segments} "
         f"{kind}")
     v, ids, valid = make_inputs(torch, dtype, num_segments, kind, g)
@@ -271,6 +287,8 @@ def check_config(torch, kernel, ops, ref, op, dtype, num_segments, kind,
     expect(torch.equal(got_n, want_n), op, dtype, num_segments, "counts")
     expect(torch.equal(bits(torch, got), bits(torch, again)),
            op, dtype, num_segments, "not bitwise repeatable")
+    expect(got.dtype == dtype and got.shape == (num_segments,), op, dtype,
+           "output", got.dtype, got.shape)
     err = 0.0
     if op == "sum" and dtype.is_floating_point:
         mass, _ = ref.masked_segment_sum_ref(v.abs(), ids, valid,
@@ -284,14 +302,21 @@ def check_config(torch, kernel, ops, ref, op, dtype, num_segments, kind,
         expect(torch.equal(bits(torch, got), bits(torch, want)),
                op, dtype, num_segments, kind, "values differ")
 
-    # times: the wrapper (sort + kernel), the kernel alone on run-ordered
-    # rows, the plain version, and one PyTorch library call on inputs
-    # prepared for it (ids in range, masked lanes at the identity)
-    ordered = ops._run_order(v, ids, valid)
+    # times: the wrapper, its two steps apart (the run-order partition,
+    # then the reduction kernel on its output; an integer SUM has no
+    # partition), the plain version, and one PyTorch library call on
+    # inputs prepared for it (ids in range, masked lanes at the identity)
+    partition = None
+    if not (op == "sum" and dtype in INT_DTYPES):
+        partition = lambda: kernel.run_order(v, ids, valid, num_segments)
+        ordered = partition()
     inside = (ids >= 0) & (ids < num_segments)
     safe = torch.where(inside, ids, 0).long()
     if op == "sum":
-        alone = lambda: kernel.segment_sum(*ordered, num_segments)
+        alone = (lambda: kernel.segment_sum_atomic(v, ids, valid,
+                                                   num_segments)) \
+            if partition is None else \
+            (lambda: kernel.segment_sum(*ordered, num_segments))
         vm = torch.where(valid & inside, v,
                          torch.zeros((), dtype=dtype, device=DEVICE))
         lib = lambda: torch.zeros(num_segments, dtype=dtype,
@@ -311,8 +336,10 @@ def check_config(torch, kernel, ops, ref, op, dtype, num_segments, kind,
     nbytes = N_ROWS * (item + 4 + 1) + num_segments * (item + 4)
     return {
         "op": op, "dtype": str(dtype).split(".")[1], "S": num_segments,
-        "kind": kind, "max_abs_err": err,
-        "ms": cuda_ms(torch, call), "kernel_only_ms": cuda_ms(torch, alone),
+        "kind": kind, "max_abs_err": err, "ms": cuda_ms(torch, call),
+        "partition_ms": None if partition is None
+        else cuda_ms(torch, partition),
+        "reduce_ms": cuda_ms(torch, alone),
         "plain_ms": cuda_ms(torch, plain, reps=3),
         "library_ms": None if lib is None else cuda_ms(torch, lib, reps=3),
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
@@ -324,19 +351,32 @@ def phase_kernels(torch):
     g = torch.Generator(device=DEVICE)
     g.manual_seed(0)
     rows = []
-    dtypes = (torch.int8, torch.int32, torch.int64, torch.float32,
-              torch.float64)
+    dtypes = (torch.int8, torch.int16, torch.int32, torch.int64, torch.uint8,
+              torch.float32, torch.float64)
     for num_segments in (4, Q18_GROUPS):
         for dtype in dtypes:
-            for op in ("sum", "min", "max"):
+            ops_ = ("sum", "min", "max")
+            if dtype in (torch.int16, torch.uint8):
+                ops_ = ("sum",)         # every integer dtype's SUM
+            for op in ops_:
                 kinds = ["plain"]
                 if dtype.is_floating_point and op != "sum":
                     kinds += ["nan", "zeros"]
+                if (op, dtype, num_segments) == ("sum", torch.int64,
+                                                 Q18_GROUPS):
+                    kinds += ["runs"]
                 for kind in kinds:
                     row = check_config(torch, kernel, ops, ref, op, dtype,
                                        num_segments, kind, g)
                     rows.append(row)
                     log("kernel " + json.dumps(row))
+    rows.append(check_config(torch, kernel, ops, ref, "sum", torch.int64,
+                             Q9_GROUPS, "plain", g))
+    log("kernel " + json.dumps(rows[-1]))
+    v, ids, valid = make_inputs(torch, torch.float64, Q18_GROUPS, "plain", g)
+    profile_device(torch, "run-order partition, float64, S=1.5M, x5",
+                   lambda: [kernel.run_order(v, ids, valid, Q18_GROUPS)
+                            for _ in range(5)])
     return rows
 
 
@@ -728,16 +768,45 @@ def model_wrappers():
 def reset_model_launches() -> None:
     for fn in model_wrappers().values():
         fn.launches = 0
+    by_kernel = model_wrappers()["flash_attention"].launches_by_kernel
+    for name in by_kernel:
+        by_kernel[name] = 0
 
 
 def read_model_launches() -> dict:
-    return {name: fn.launches for name, fn in model_wrappers().items()}
+    """Launches by wrapper, and ``flash_wgmma``: how many of the flash
+    launches ran the wgmma kernel."""
+    wrap = model_wrappers()
+    return {**{name: fn.launches for name, fn in wrap.items()},
+            "flash_wgmma":
+                wrap["flash_attention"].launches_by_kernel["wgmma"]}
 
 
 def rel_err(torch, got, want) -> float:
     """max|got - want| / max|want|, in float32."""
     got, want = got.float(), want.float()
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def flash_one_bf16_p(torch, q, k, v, *, causal: bool, window):
+    """The control for ``FLASH_TOL``: the plain version of
+    ``kernels/flash_attention/ref.py`` with P = exp(s - max) rounded to
+    bf16 before P V; the row sums stay float32."""
+    from repro_torch.kernels.flash_attention import ref
+    H, K, S, hd = q.shape[1], k.shape[1], q.shape[2], q.shape[3]
+    mask = ref.band_mask(S, k.shape[2], causal=causal, window=window,
+                         device=q.device)
+    out = torch.empty_like(q)
+    for b in range(q.shape[0]):       # one batch entry's scores at a time
+        kb = k[b].float().repeat_interleave(H // K, dim=0)
+        vb = v[b].float().repeat_interleave(H // K, dim=0)
+        s = torch.einsum("hqd,hkd->hqk", q[b].float(), kb) / hd ** 0.5
+        s = torch.where(mask, s, ref.NEG_INF)
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        l = p.sum(-1, keepdim=True)
+        o = torch.einsum("hqk,hkd->hqd", p.bfloat16().float(), vb)
+        out[b] = (o / l.clamp_min(1e-30)).to(q.dtype)
+    return out
 
 
 def flash_case(torch, case: dict, g):
@@ -754,7 +823,9 @@ def flash_case(torch, case: dict, g):
     v = torch.randn(B, K, S, hd, generator=g, device=DEVICE, dtype=dtype)
     call = lambda: ops.flash_attention(q, k, v, causal=causal, window=window)
     alone = lambda: kernel.flash_attention(q, k, v, causal=causal,
-                                           window=window)
+                                           window=window)[0]
+    name = kernel.kernel_for(dtype, hd)
+    before = dict(ops.flash_attention.launches_by_kernel)
     plain = lambda: ref.flash_attention_ref(q, k, v, causal=causal,
                                             window=window)
     mask = ref.band_mask(S, S, causal=causal, window=window, device=DEVICE)
@@ -762,6 +833,10 @@ def flash_case(torch, case: dict, g):
         q, k, v, attn_mask=mask, enable_gqa=K != H)
     got, want, lib = call(), plain(), library()
     torch.cuda.synchronize()
+    ran = {k: n - before[k] for k, n in
+           ops.flash_attention.launches_by_kernel.items()}
+    expect(ran == {k: int(k == name) for k in ran}, "flash launches", ran,
+           name)
     rtol, atol = FLASH_TOL[dt]
     err = float((got.float() - want.float()).abs().max())
     expect(got.dtype == dtype and got.shape == q.shape, "flash output",
@@ -774,9 +849,24 @@ def flash_case(torch, case: dict, g):
     nbytes = (2 * B * H + 2 * B * K) * S * hd * q.element_size()
     t_ops = flops / PEAK_FLOPS[dt] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    control = None
+    if case == FLASH_MAIN:
+        # P rounded to one bf16 part before P V, as a kernel that fed it
+        # to the tensor cores so would read it: it must fail the gate
+        # that the kernel's split form (P = hi + lo) passes
+        one = flash_one_bf16_p(torch, q, k, v, causal=causal, window=window)
+        control = {"max_abs_err": float((one.float() - want.float())
+                                        .abs().max()),
+                   "passes": bool(torch.allclose(one.float(), want.float(),
+                                                 rtol=rtol, atol=atol))}
+        log(f"flash control, one bf16 P: {json.dumps(control)}")
+        expect(not control["passes"], "the one-bf16-P control passes "
+               "FLASH_TOL: the gate cannot tell the two forms apart")
+        del one
     del got, want
     return {
-        "op": "flash_attention", **case, "max_abs_err": err,
+        "op": "flash_attention", **case, "kernel": name,
+        "control_one_bf16_p": control, "max_abs_err": err,
         "library_err": float((lib.float() - plain().float()).abs().max()),
         "ms": cuda_ms(torch, call, reps=5),
         "kernel_only_ms": cuda_ms(torch, alone, reps=5),
@@ -821,6 +911,7 @@ FLASH_CASES = [
     {**FLASH_MAIN, "window": None},                # causal, no window
     {**FLASH_MAIN, "causal": False, "window": None},
     {**FLASH_MAIN, "K": 8, "hd": 128},             # GQA
+    {**FLASH_MAIN, "K": 4, "hd": 64},              # GQA, the smallest wgmma hd
     {**FLASH_MAIN, "S": 4000},                     # ragged S
     {**FLASH_MAIN, "dtype": "float32"},
 ]
@@ -836,9 +927,16 @@ def ptxas_of(ptxas: dict, stem: str, tag: str) -> dict:
 
 
 def flash_tag(case: dict) -> str:
-    """The mangled-name fragment of the instantiation a case runs."""
+    """The mangled-name fragment of the instantiation a case runs:
+    ``flash_wgmma_kernel<hd>`` or ``flash_fwd_kernel<T, hd>``, as the
+    dispatch table picks."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel
+    hd = case["hd"]
+    if kernel.kernel_for(getattr(torch, case["dtype"]), hd) == "wgmma":
+        return f"flash_wgmma_kernelILi{hd}EE"
     elem = "13__nv_bfloat16" if case["dtype"] == "bfloat16" else "f"
-    return f"flash_fwd_kernelI{elem}Li{case['hd']}E"
+    return f"flash_fwd_kernelI{elem}Li{hd}E"
 
 
 def phase_model_kernels(torch, ptxas: dict):
@@ -849,6 +947,9 @@ def phase_model_kernels(torch, ptxas: dict):
         rows.append({**flash_case(torch, case, g), **ptxas_of(
             ptxas, "flash_attention", flash_tag(case))})
         log("kernel " + json.dumps(rows[-1]))
+    main = rows[0]
+    expect(main["kernel"] == "wgmma" and main["spill_bytes"] == 0,
+           "the main flash case", main["kernel"], main["spill_bytes"])
     for case in RGLRU_CASES:
         rows.append({**rglru_case(torch, case, g), **ptxas_of(
             ptxas, "rglru_scan", "rglru_scan_kernel")})
@@ -903,9 +1004,11 @@ def phase_prefill(torch, cfg, model, seed: int, want: dict,
                   batch: int = PREFILL_BATCH, length: int = PREFILL_LEN,
                   label: str = "prefill") -> dict:
     """6c and 7c: the serving prefill at full width and depth; ``want``
-    the launches per forward, by kernel."""
-    expect(forward_launches(model) == want, "layer kinds",
-           forward_launches(model), want)
+    the launches per forward, by kernel, and ``flash_wgmma`` how many of
+    the flash launches must run the wgmma kernel."""
+    expect(forward_launches(model) == {k: n for k, n in want.items()
+                                       if k != "flash_wgmma"},
+           "layer kinds", forward_launches(model), want)
     g = torch.Generator(device=DEVICE)
     g.manual_seed(seed + 1)
     tokens = torch.randint(0, cfg.vocab_size, (batch, length),
@@ -1117,7 +1220,8 @@ def phase_model(torch, np, seed: int) -> dict:
     out = {"launcher": phase_launcher(torch)}
     cfg, model = full_model(torch, seed)
     out["prefill"] = phase_prefill(torch, cfg, model, seed, want={
-        "flash_attention": 12, "rglru_scan": 26, "mlstm_chunkwise": 0})
+        "flash_attention": 12, "rglru_scan": 26, "mlstm_chunkwise": 0,
+        "flash_wgmma": 12})
     out["serve"] = phase_serve_loop(torch, np, cfg, model, seed)
     out["long"] = phase_prefill_vs_decode(torch, cfg, model, seed)
     del model
@@ -1276,7 +1380,8 @@ def phase_xlstm(torch, np, seed: int) -> dict:
     cfg, model = full_model(torch, seed, XLSTM)
     out["prefill"] = phase_prefill(
         torch, cfg, model, seed, want={
-            "flash_attention": 0, "rglru_scan": 0, "mlstm_chunkwise": 12},
+            "flash_attention": 0, "rglru_scan": 0, "mlstm_chunkwise": 12,
+            "flash_wgmma": 0},
         batch=XLSTM_BATCH, length=XLSTM_LEN, label="xlstm prefill")
     out["long"] = phase_prefill_vs_decode(
         torch, cfg, model, seed, length=XLSTM_LONG_PROMPT,
@@ -1433,7 +1538,8 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
-            "kernel_only_ms": row["kernel_only_ms"],
+            "partition_ms": row["partition_ms"],
+            "reduce_ms": row["reduce_ms"],
             "shape": f"n={N_ROWS} S={s} {dt} {op}",
             "h2d_ms": copy_ms,
         })
@@ -1499,6 +1605,7 @@ def main() -> int:
             "kernel_only_ms": row["kernel_only_ms"],
             "shape": json.dumps(main_case), "registers": row["registers"],
             "spill_bytes": row["spill_bytes"],
+            **({"kernel": row["kernel"]} if "kernel" in row else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

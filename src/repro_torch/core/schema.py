@@ -279,6 +279,15 @@ class Schema(metaclass=_SchemaMeta):
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
+class _TensorAval:
+    """A torch tensor's shape and dtype name (``"bfloat16"``, not
+    ``"torch.bfloat16"``), as :meth:`TensorContract.validate_abstract`
+    reads them."""
+    shape: tuple[int, ...]
+    dtype: str
+
+
+@dataclasses.dataclass(frozen=True)
 class TensorContract:
     """Contract for one array artifact crossing a pipeline boundary.
 
@@ -315,14 +324,25 @@ class TensorContract:
                     f"{name}: dim {i} is {got}, contract says {want}")
 
     def validate_concrete(self, arr, name: str = "<tensor>") -> None:
+        """Check a concrete value: a torch tensor on any device and of any
+        dtype (bf16 included), read where it lies, or anything
+        ``np.asarray`` takes."""
         import numpy as np
+        import torch
         from repro_torch.core.errors import ContractRuntimeError
-        arr = np.asarray(arr)    # numpy arrays and CPU torch tensors
+        if isinstance(arr, torch.Tensor):
+            aval = _TensorAval(tuple(arr.shape),
+                               str(arr.dtype).removeprefix("torch."))
+            floating = arr.is_floating_point()
+            has_nan = lambda: bool(torch.isnan(arr).any())
+        else:
+            aval = arr = np.asarray(arr)
+            floating = np.issubdtype(arr.dtype, np.floating)
+            has_nan = lambda: bool(np.isnan(arr).any())
         self_bindings: dict[str, int] = {}
         try:
-            self.validate_abstract(arr, self_bindings, name)
+            self.validate_abstract(aval, self_bindings, name)
         except Exception as e:  # re-raise at WORKER moment
             raise ContractRuntimeError(str(e)) from e
-        if not self.allow_nan and np.issubdtype(arr.dtype, np.floating):
-            if bool(np.isnan(arr).any()):
-                raise ContractRuntimeError(f"{name}: contract forbids NaNs")
+        if not self.allow_nan and floating and has_nan():
+            raise ContractRuntimeError(f"{name}: contract forbids NaNs")

@@ -8,7 +8,8 @@ indexing (kv head ``h // (H // K)``), not by repeating k and v. A CUDA
 tensor goes to the kernel or the call raises; there is no fallback.
 
 :func:`flash_attention` carries ``launches``: the number of times it
-launched its kernel. CPU calls do not count.
+launched a kernel, and ``launches_by_kernel``: the same by the kernel's
+name (``kernel.KERNELS``). CPU calls do not count.
 """
 from __future__ import annotations
 
@@ -37,10 +38,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"inputs lie on several devices: {devices}")
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
-    out = kernel.flash_attention(q, k, v, causal=causal, window=window)
+    out, name = kernel.flash_attention(q, k, v, causal=causal, window=window)
     with _count_lock:
         flash_attention.launches += 1
+        flash_attention.launches_by_kernel[name] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_kernel = {"wgmma": 0, "simt": 0}

@@ -378,6 +378,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const float* l
                      const float* log_f, float* h, int BH, int S, int hd, float scale,
                      cudaStream_t stream) {
   switch (hd) {
+    case 32: return launch<T, 32>(q, k, v, log_i, log_f, h, BH, S, scale, stream);
     case 64: return launch<T, 64>(q, k, v, log_i, log_f, h, BH, S, scale, stream);
     case 256: return launch<T, 256>(q, k, v, log_i, log_f, h, BH, S, scale, stream);
     default: return cudaErrorInvalidValue;
@@ -390,7 +391,7 @@ extern "C" {
 
 // q, k, v: (BH, S, hd) contiguous, one dtype: 0 = float32, 1 = bfloat16.
 // log_i, log_f: (BH, S) contiguous float32. h: (BH, S, hd) float32. hd in
-// {64, 256}, BH <= 65535. Returns the CUDA error of the launch
+// {32, 64, 256}, BH <= 65535. Returns the CUDA error of the launch
 // (0 = success); BH == 0 or S == 0 launches nothing.
 int repro_mlstm_chunkwise(const void* q, const void* k, const void* v, const float* log_i,
                           const float* log_f, float* h, int dtype, int BH, int S, int hd,

@@ -18,7 +18,7 @@ from repro_torch.kernels.build import CudaLibrary
 __all__ = ["build", "mlstm_chunkwise", "SOURCE", "HEAD_DIMS"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mlstm_chunkwise.cu"
-HEAD_DIMS = (64, 256)    # the kernel's instantiations
+HEAD_DIMS = (32, 64, 256)    # the kernel's instantiations
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

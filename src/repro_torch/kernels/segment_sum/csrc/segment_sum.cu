@@ -17,9 +17,11 @@
 // unspecified.
 //
 // The TPU kernel one-hot-reduces (block_n x block_s) tiles because TPU
-// Pallas has no scatter. Here the rows arrive in run order (the wrapper
-// sorts the ids stably, keeping row order within a segment), so each
-// segment is a contiguous run and no atomics are needed:
+// Pallas has no scatter. Here an integer SUM takes integer atomics in any
+// order (repro_segment_sum_atomic, below). A float SUM and MIN/MAX take
+// the rows in run order (the stable radix partition below,
+// repro_run_order, keeps row order within a segment), so each segment is
+// a contiguous run and no atomics are needed:
 //   1. init:  every output starts empty;
 //   2. tile:  one block per tile of kTile rows. Each thread reduces its
 //             kItems rows in row order; a segment wholly inside a thread
@@ -323,6 +325,537 @@ cudaError_t launch(const void* values, const int* ids, const uint8_t* valid, lon
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Integer SUM without run order. Integer addition is associative and
+// commutative in AccOf's unsigned type (the wrap is defined there), so
+// integer atomics give the same bits in any order, and the truncation to
+// the value dtype at the end is numpy's sum. Three shapes by S, with
+// switch points from measurement (PERF.md):
+//   S <= kRegSwitch:    each thread keeps S sums and counts in registers,
+//                       a warp reduces them with shuffles, the warps add
+//                       into shared bins, and each block issues one global
+//                       atomic per bin (at Q1's S = 4, six million atomics
+//                       on four words would serialize; int64 shared bins
+//                       take twice its time there);
+//   S <= kSharedSwitch: each block adds into S shared bins (at most 48 KB,
+//                       four blocks an SM), then one global atomic per
+//                       (block, non-empty bin): at TPC-H Q9's 175 groups,
+//                       global atomics take 20 times as long;
+//   otherwise:          global atomics straight away (Q18's 1.5M x 12 B of
+//                       outputs sit in the 50 MB L2), one per run of equal
+//                       ids within a warp's 32 rows: a group's rows that
+//                       lie together in the table (Q18's orders) cost one
+//                       atomic pair, scattered ids one pair per row.
+// Bound: bytes, as the run-order kernels (one read of the rows, one
+// write of the outputs).
+// ---------------------------------------------------------------------------
+
+constexpr int kRegBins = 16;
+constexpr int kAtomicThreads = 256;
+// The switch points. The one-off timing script
+// src/repro_torch/examples/segment_switch.py rebuilds this file with -D
+// to time each shape at one S; nothing else sets them.
+#ifndef REPRO_SEGMENT_REG_SWITCH
+#define REPRO_SEGMENT_REG_SWITCH 16
+#endif
+#ifndef REPRO_SEGMENT_SHARED_SWITCH
+#define REPRO_SEGMENT_SHARED_SWITCH 4096
+#endif
+constexpr int kRegSwitch = REPRO_SEGMENT_REG_SWITCH;
+constexpr int kSharedSwitch = REPRO_SEGMENT_SHARED_SWITCH;
+static_assert(kRegSwitch <= kRegBins, "the register shape holds kRegBins bins");
+static_assert(kSharedSwitch * (sizeof(uint64_t) + sizeof(int)) <= 48 * 1024,
+              "the shared bins stay within the default 48 KB a block");
+
+__device__ __forceinline__ uint32_t atomic_add(uint32_t* p, uint32_t v) {
+  return atomicAdd(p, v);
+}
+__device__ __forceinline__ uint64_t atomic_add(uint64_t* p, uint64_t v) {
+  return static_cast<uint64_t>(atomicAdd(reinterpret_cast<unsigned long long*>(p),
+                                         static_cast<unsigned long long>(v)));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kAtomicThreads) sum_reg_kernel(
+    const T* __restrict__ values, const int* __restrict__ ids, const uint8_t* __restrict__ valid,
+    long long n, int S, typename AccOf<T, kSum>::type* __restrict__ acc,
+    int* __restrict__ counts) {
+  using A = typename AccOf<T, kSum>::type;
+  __shared__ A s_acc[kRegBins];
+  __shared__ int s_cnt[kRegBins];
+  if (threadIdx.x < kRegBins) {
+    s_acc[threadIdx.x] = 0;
+    s_cnt[threadIdx.x] = 0;
+  }
+  A a[kRegBins];
+  int c[kRegBins];
+#pragma unroll
+  for (int b = 0; b < kRegBins; ++b) {
+    a[b] = 0;
+    c[b] = 0;
+  }
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long r = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; r < n;
+       r += stride) {
+    const int s = valid[r] ? ids[r] : -1;
+    const A v = static_cast<A>(values[r]);
+#pragma unroll
+    for (int b = 0; b < kRegBins; ++b) {
+      const bool hit = s == b;   // bins S .. kRegBins-1 catch ids >= S and are dropped
+      a[b] += hit ? v : A(0);
+      c[b] += hit;
+    }
+  }
+  __syncthreads();  // the shared bins are zero
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int b = 0; b < kRegBins; ++b) {
+    if (b >= S) break;
+    A x = a[b];
+    int k = c[b];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      x += shfl_down(x, off);
+      k += __shfl_down_sync(kFull, k, off);
+    }
+    if (lane == 0 && k > 0) {
+      atomic_add(&s_acc[b], x);
+      atomicAdd(&s_cnt[b], k);
+    }
+  }
+  __syncthreads();
+  const int b = threadIdx.x;
+  if (b < S && s_cnt[b] > 0) {
+    atomic_add(&acc[b], s_acc[b]);
+    atomicAdd(&counts[b], s_cnt[b]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kAtomicThreads) sum_shared_kernel(
+    const T* __restrict__ values, const int* __restrict__ ids, const uint8_t* __restrict__ valid,
+    long long n, int S, typename AccOf<T, kSum>::type* __restrict__ acc,
+    int* __restrict__ counts) {
+  using A = typename AccOf<T, kSum>::type;
+  extern __shared__ __align__(16) unsigned char s_raw[];
+  A* s_acc = reinterpret_cast<A*>(s_raw);
+  int* s_cnt = reinterpret_cast<int*>(s_acc + S);
+  for (int b = threadIdx.x; b < S; b += blockDim.x) {
+    s_acc[b] = 0;
+    s_cnt[b] = 0;
+  }
+  __syncthreads();
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long r = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; r < n;
+       r += stride) {
+    const int s = ids[r];
+    if (valid[r] && s >= 0 && s < S) {
+      atomic_add(&s_acc[s], static_cast<A>(values[r]));
+      atomicAdd(&s_cnt[s], 1);
+    }
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < S; b += blockDim.x) {
+    if (s_cnt[b] > 0) {
+      atomic_add(&acc[b], s_acc[b]);
+      atomicAdd(&counts[b], s_cnt[b]);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kAtomicThreads) sum_global_kernel(
+    const T* __restrict__ values, const int* __restrict__ ids, const uint8_t* __restrict__ valid,
+    long long n, int S, typename AccOf<T, kSum>::type* __restrict__ acc,
+    int* __restrict__ counts) {
+  using A = typename AccOf<T, kSum>::type;
+  const int lane = threadIdx.x & 31;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  // whole warps walk the rows together, lane i on row base + i
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  for (long long r0 = first - lane; r0 < n; r0 += stride) {
+    const long long r = r0 + lane;
+    int s = -1;
+    A v = 0;
+    if (r < n && valid[r]) {
+      s = ids[r];
+      v = static_cast<A>(values[r]);
+    }
+    if (s >= S) s = -1;
+    // a run of lanes with one id (rows of a group lie together in the
+    // table's order) adds up first, and its first lane alone goes to
+    // device memory: each lane sums its run from itself to the run's end
+    const int next = __shfl_down_sync(kFull, s, 1);
+    const unsigned ends = __ballot_sync(kFull, lane == 31 || next != s);
+    const int end = __ffs(ends & (kFull << lane)) - 1;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const A y = shfl_down(v, off);
+      if (lane + off <= end) v += y;
+    }
+    const int prev = __shfl_up_sync(kFull, s, 1);
+    if (s >= 0 && (lane == 0 || prev != s)) {
+      atomic_add(&acc[s], v);
+      atomicAdd(&counts[s], end - lane + 1);
+    }
+  }
+}
+
+// out[s] = the low bits of acc[s] (numpy's wrap in the value dtype).
+template <typename T>
+__global__ void truncate_kernel(const typename AccOf<T, kSum>::type* __restrict__ acc,
+                                T* __restrict__ out, int S) {
+  for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < S; s += gridDim.x * blockDim.x)
+    out[s] = static_cast<T>(acc[s]);
+}
+
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 132;
+  }
+  return sms;
+}
+
+template <typename T>
+size_t atomic_shared_bytes(int S) {
+  return static_cast<size_t>(S) * (sizeof(typename AccOf<T, kSum>::type) + sizeof(int));
+}
+
+// Which of the three shapes a launch takes: 0 registers, 1 shared, 2 global.
+int atomic_path(int S) {
+  if (S <= kRegSwitch) return 0;
+  if (S <= kSharedSwitch) return 1;
+  return 2;
+}
+
+template <typename T>
+cudaError_t launch_atomic(const void* values, const int* ids, const uint8_t* valid, long long n,
+                          int S, void* out, int* counts, void* scratch, cudaStream_t stream) {
+  using A = typename AccOf<T, kSum>::type;
+  if (S <= 0) return cudaGetLastError();
+  // same width: add into the output in place; narrower: into the scratch,
+  // then truncate
+  A* acc = sizeof(A) == sizeof(T) ? static_cast<A*>(out) : static_cast<A*>(scratch);
+  cudaError_t err = cudaMemsetAsync(acc, 0, static_cast<size_t>(S) * sizeof(A), stream);
+  if (err == cudaSuccess) err = cudaMemsetAsync(counts, 0, static_cast<size_t>(S) * sizeof(int), stream);
+  if (err != cudaSuccess) return err;
+  const T* v = static_cast<const T*>(values);
+  const long long want = (n + kAtomicThreads - 1) / kAtomicThreads;
+  if (n > 0) {
+    switch (atomic_path(S)) {
+      case 0: {
+        const int blocks = static_cast<int>(want < 2 * sm_count() ? want : 2 * sm_count());
+        sum_reg_kernel<T><<<blocks, kAtomicThreads, 0, stream>>>(v, ids, valid, n, S, acc, counts);
+        break;
+      }
+      case 1: {
+        const long long cap = 4LL * sm_count();
+        const int blocks = static_cast<int>(want < cap ? want : cap);
+        sum_shared_kernel<T><<<blocks, kAtomicThreads, atomic_shared_bytes<T>(S), stream>>>(
+            v, ids, valid, n, S, acc, counts);
+        break;
+      }
+      default: {
+        const long long cap = 16LL * sm_count();
+        const int blocks = static_cast<int>(want < cap ? want : cap);
+        sum_global_kernel<T><<<blocks, kAtomicThreads, 0, stream>>>(v, ids, valid, n, S, acc,
+                                                                    counts);
+      }
+    }
+  }
+  if (sizeof(A) != sizeof(T)) {
+    const long long tb = (static_cast<long long>(S) + kAtomicThreads - 1) / kAtomicThreads;
+    truncate_kernel<T><<<static_cast<int>(tb < 4096 ? tb : 4096), kAtomicThreads, 0, stream>>>(
+        acc, static_cast<T*>(out), S);
+  }
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Run order without a general sort: a stable LSD radix partition of the
+// rows by key = (id in [0, S) ? id : S), over only the ceil(log2(S + 1))
+// bits the keys need, in passes of at most 8 bits (1 pass at S = 4, 3 of
+// 7 bits at S = 1.5M). Values and validity ride along as payload, copied
+// as raw bits, so there is no int64 permutation and no gather. Each pass:
+//   1. histogram: one block per tile of kPTile rows counts its digits
+//      (shared atomics: a count does not depend on their order) into
+//      hist[digit][tile];
+//   2. scan:      one block per digit turns hist[digit][*] into the
+//      exclusive prefix over tiles, in tile order, and writes the digit's
+//      total;
+//   3. scatter:   each block takes the exclusive prefix of the totals (the
+//      digit's start), walks its tile warp by warp in row order, ranks
+//      each row among the earlier rows of its digit (a ballot per digit
+//      bit, and per-warp counters), reorders the tile by digit in shared
+//      memory, and writes each digit's run out at start + prefix,
+//      neighbouring threads on neighbouring rows, so the stores coalesce.
+// Every step is integer and in a fixed order, so the output is the same
+// on every launch, and stable: rows of one key keep their row order (the
+// MIN/MAX rule that the later row wins a tie needs it). The output feeds
+// tile_kernel / carry_kernel above unchanged; key S lies outside [0, S),
+// so those rows contribute nothing there.
+// ---------------------------------------------------------------------------
+
+constexpr int kPThreads = 256;
+constexpr int kPWarps = kPThreads / 32;
+constexpr int kPChunks = 16;                        // 32-row chunks per warp
+constexpr int kPWarpRows = 32 * kPChunks;           // rows per warp
+constexpr int kPTile = kPWarps * kPWarpRows;        // rows per block: 4096
+constexpr int kMaxDigits = 256;
+
+struct PassPlan {
+  int passes = 0;
+  int bits = 0;  // digit bits per pass
+};
+
+PassPlan plan_passes(int S) {
+  int need = 0;  // bits to hold keys 0 .. S
+  while ((1LL << need) < static_cast<long long>(S) + 1) ++need;
+  PassPlan p;
+  p.passes = (need + 7) / 8;
+  p.bits = p.passes ? (need + p.passes - 1) / p.passes : 0;
+  return p;
+}
+
+__device__ __forceinline__ int key_of(const int* __restrict__ keys, long long r, int S, bool raw) {
+  const int id = keys[r];
+  return raw ? ((id >= 0 && id < S) ? id : S) : id;
+}
+
+__global__ void __launch_bounds__(kPThreads) radix_hist_kernel(
+    const int* __restrict__ keys, long long n, int S, int raw, int shift, int digits,
+    int n_tiles, int* __restrict__ hist) {
+  __shared__ int h[kMaxDigits];
+  for (int d = threadIdx.x; d < digits; d += kPThreads) h[d] = 0;
+  __syncthreads();
+  const long long base = static_cast<long long>(blockIdx.x) * kPTile;
+  const long long end = min(n, base + kPTile);
+  for (long long r = base + threadIdx.x; r < end; r += kPThreads) {
+    const int d = (key_of(keys, r, S, raw) >> shift) & (digits - 1);
+    atomicAdd(&h[d], 1);
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < digits; d += kPThreads)
+    hist[static_cast<long long>(d) * n_tiles + blockIdx.x] = h[d];
+}
+
+// Block-wide exclusive scan of one int per thread; returns the block's total.
+__device__ __forceinline__ int block_exclusive_scan(int x, int* s_warp, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int inc = x;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(kFull, inc, off);
+    if (lane >= off) inc += y;
+  }
+  if (lane == 31) s_warp[warp] = inc;
+  __syncthreads();
+  int before = 0, all = 0;
+  for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) {
+    const int t = s_warp[w];
+    if (w < warp) before += t;
+    all += t;
+  }
+  __syncthreads();  // s_warp may be written again
+  total = all;
+  return before + inc - x;
+}
+
+__global__ void __launch_bounds__(kPThreads) radix_scan_kernel(int* __restrict__ hist,
+                                                              int n_tiles,
+                                                              int* __restrict__ totals) {
+  __shared__ int s_warp[kPWarps];
+  int* row = hist + static_cast<long long>(blockIdx.x) * n_tiles;
+  int carry = 0;
+  for (int t0 = 0; t0 < n_tiles; t0 += kPThreads) {
+    const int t = t0 + threadIdx.x;
+    const int x = t < n_tiles ? row[t] : 0;
+    int total;
+    const int ex = block_exclusive_scan(x, s_warp, total);
+    if (t < n_tiles) row[t] = carry + ex;
+    carry += total;
+  }
+  if (threadIdx.x == 0) totals[blockIdx.x] = carry;
+}
+
+// Dynamic shared memory of the scatter: per warp and digit a counter, the
+// tile's digit starts (global and local), and the tile reordered by digit.
+template <typename P>
+constexpr size_t scatter_smem() {
+  return sizeof(int) * (kPWarps * kMaxDigits + 2 * kMaxDigits + kPWarps) +
+         static_cast<size_t>(kPTile) * (sizeof(P) + sizeof(int) + 1);
+}
+
+template <typename P>
+__global__ void __launch_bounds__(kPThreads) radix_scatter_kernel(
+    const int* __restrict__ keys, const P* __restrict__ vals, const uint8_t* __restrict__ valid,
+    long long n, int S, int raw, int shift, int bits, int n_tiles,
+    const int* __restrict__ hist, const int* __restrict__ totals, int* __restrict__ keys_out,
+    P* __restrict__ vals_out, uint8_t* __restrict__ valid_out) {
+  const int digits = 1 << bits;
+  extern __shared__ __align__(16) unsigned char p_raw[];
+  P* t_val = reinterpret_cast<P*>(p_raw);                        // [kPTile]
+  int* cnt = reinterpret_cast<int*>(t_val + kPTile);             // [kPWarps][kMaxDigits]
+  int* gstart = cnt + kPWarps * kMaxDigits;                      // [kMaxDigits]
+  int* lstart = gstart + kMaxDigits;                             // [kMaxDigits]
+  int* s_warp = lstart + kMaxDigits;                             // [kPWarps]
+  int* t_key = s_warp + kPWarps;                                 // [kPTile]
+  uint8_t* t_ok = reinterpret_cast<uint8_t*>(t_key + kPTile);    // [kPTile]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned lt = (1u << lane) - 1u;
+  const long long base = static_cast<long long>(blockIdx.x) * kPTile;
+  const int rows = static_cast<int>(min(static_cast<long long>(kPTile), n - base));
+
+  // 1. each digit's first output row for this tile: the exclusive prefix
+  // of the totals (digits <= kPThreads: one round), plus the earlier
+  // tiles' rows of that digit
+  {
+    int total;
+    const int ex = block_exclusive_scan(tid < digits ? totals[tid] : 0, s_warp, total);
+    if (tid < digits) gstart[tid] = ex + hist[static_cast<long long>(tid) * n_tiles + blockIdx.x];
+  }
+  for (int i = tid; i < kPWarps * kMaxDigits; i += kPThreads) cnt[i] = 0;
+  __syncthreads();
+
+  // 2. each warp walks its 512 rows in order, 32 at a time, and ranks
+  // each row among the warp's earlier rows of its digit
+  const int w0 = warp * kPWarpRows;
+  int key[kPChunks], rank[kPChunks];   // only the keys wait in registers
+#pragma unroll
+  for (int c = 0; c < kPChunks; ++c) {
+    const int i = w0 + c * 32 + lane;
+    key[c] = i < rows ? key_of(keys, base + i, S, raw) : 0;
+  }
+#pragma unroll
+  for (int c = 0; c < kPChunks; ++c) {
+    const bool in = w0 + c * 32 + lane < rows;
+    const int d = (key[c] >> shift) & (digits - 1);
+    // the lanes of this digit: one ballot per digit bit
+    unsigned peers = __ballot_sync(kFull, in);
+#pragma unroll
+    for (int bit = 0; bit < 8; ++bit) {
+      if (bit < bits) {
+        const unsigned on = __ballot_sync(kFull, (d >> bit) & 1);
+        peers &= ((d >> bit) & 1) ? on : ~on;
+      }
+    }
+    int* slot = &cnt[warp * kMaxDigits + (in ? d : 0)];
+    const int before = *slot;
+    rank[c] = before + __popc(peers & lt);
+    __syncwarp();
+    if (in && lane == 31 - __clz(peers)) *slot = before + __popc(peers);
+    __syncwarp();
+  }
+  __syncthreads();
+
+  // 3. per digit: the warps' runs follow one another, the digits too
+  {
+    int run = 0;
+    if (tid < digits) {
+      for (int w = 0; w < kPWarps; ++w) {
+        const int k = cnt[w * kMaxDigits + tid];
+        cnt[w * kMaxDigits + tid] = run;
+        run += k;
+      }
+    }
+    int total;
+    const int ex = block_exclusive_scan(tid < digits ? run : 0, s_warp, total);
+    if (tid < digits) {
+      lstart[tid] = ex;
+      for (int w = 0; w < kPWarps; ++w) cnt[w * kMaxDigits + tid] += ex;
+    }
+  }
+  __syncthreads();
+
+  // 4. the tile, reordered by digit in shared memory (stable); the
+  // payload is read only now, in row order
+#pragma unroll
+  for (int c = 0; c < kPChunks; ++c) {
+    const int i = w0 + c * 32 + lane;
+    if (i < rows) {
+      const int d = (key[c] >> shift) & (digits - 1);
+      const int at = cnt[warp * kMaxDigits + d] + rank[c];
+      t_key[at] = key[c];
+      t_val[at] = vals[base + i];
+      t_ok[at] = valid[base + i];
+    }
+  }
+  __syncthreads();
+
+  // 5. out to device memory: neighbouring threads write neighbouring rows
+  // of each digit's run
+  for (int i = tid; i < rows; i += kPThreads) {
+    const int k = t_key[i];
+    const int d = (k >> shift) & (digits - 1);
+    const int at = gstart[d] + (i - lstart[d]);
+    keys_out[at] = k;
+    vals_out[at] = t_val[i];
+    valid_out[at] = t_ok[i];
+  }
+}
+
+size_t align256(size_t x) { return (x + 255) & ~static_cast<size_t>(255); }
+
+long long run_order_scratch(int itemsize, long long n, int S) {
+  const PassPlan p = plan_passes(S);
+  const long long n_tiles = (n + kPTile - 1) / kPTile;
+  const size_t digits = static_cast<size_t>(1) << p.bits;
+  return static_cast<long long>(align256(n * sizeof(int)) + align256(n * itemsize) +
+                                align256(n) + align256(digits * n_tiles * sizeof(int)) +
+                                align256(digits * sizeof(int)));
+}
+
+template <typename P>
+cudaError_t launch_run_order(const void* values, const int* ids, const uint8_t* valid,
+                             long long n, int S, void* values_out, int* ids_out,
+                             uint8_t* valid_out, void* scratch, cudaStream_t stream) {
+  const PassPlan plan = plan_passes(S);
+  if (n <= 0 || plan.passes == 0) return cudaGetLastError();
+  const int n_tiles = static_cast<int>((n + kPTile - 1) / kPTile);
+  const int digits = 1 << plan.bits;
+  unsigned char* at = static_cast<unsigned char*>(scratch);
+  int* tmp_keys = reinterpret_cast<int*>(at);
+  at += align256(n * sizeof(int));
+  P* tmp_vals = reinterpret_cast<P*>(at);
+  at += align256(n * sizeof(P));
+  uint8_t* tmp_valid = at;
+  at += align256(n);
+  int* hist = reinterpret_cast<int*>(at);
+  at += align256(static_cast<size_t>(digits) * n_tiles * sizeof(int));
+  int* totals = reinterpret_cast<int*>(at);
+
+  constexpr size_t smem = scatter_smem<P>();
+  cudaError_t err = cudaFuncSetAttribute(radix_scatter_kernel<P>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int* k_in = ids;
+  const P* v_in = static_cast<const P*>(values);
+  const uint8_t* m_in = valid;
+  for (int pass = 0; pass < plan.passes; ++pass) {
+    // the last pass writes the caller's outputs
+    const bool to_out = (plan.passes - 1 - pass) % 2 == 0;
+    int* k_out = to_out ? ids_out : tmp_keys;
+    P* v_out = to_out ? static_cast<P*>(values_out) : tmp_vals;
+    uint8_t* m_out = to_out ? valid_out : tmp_valid;
+    const int raw = pass == 0;
+    const int shift = pass * plan.bits;
+    radix_hist_kernel<<<n_tiles, kPThreads, 0, stream>>>(k_in, n, S, raw, shift, digits, n_tiles,
+                                                         hist);
+    radix_scan_kernel<<<digits, kPThreads, 0, stream>>>(hist, n_tiles, totals);
+    radix_scatter_kernel<P><<<n_tiles, kPThreads, smem, stream>>>(
+        k_in, v_in, m_in, n, S, raw, shift, plan.bits, n_tiles, hist, totals, k_out, v_out, m_out);
+    k_in = k_out;
+    v_in = v_out;
+    m_in = m_out;
+  }
+  return cudaGetLastError();
+}
+
 // dtype codes, shared with kernel.py
 enum DType { kI8 = 0, kI16 = 1, kI32 = 2, kI64 = 3, kU8 = 4, kF32 = 5, kF64 = 6 };
 
@@ -366,6 +899,48 @@ int repro_segment_reduce(int dtype, int op, const void* values, const int* ids,
   if (op == kMin) return static_cast<int>(dispatch<kMin>(dtype, values, ids, valid, n, S, out, counts, scratch, st));
   if (op == kMax) return static_cast<int>(dispatch<kMax>(dtype, values, ids, valid, n, S, out, counts, scratch, st));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Integer SUM with integer atomics, in any row order (kI8 .. kU8 only).
+long long repro_segment_atomic_scratch_bytes(long long S) {
+  return S * static_cast<long long>(sizeof(uint64_t));
+}
+
+int repro_segment_sum_atomic(int dtype, const void* values, const int* ids, const uint8_t* valid,
+                             long long n, int S, void* out, int* counts, void* scratch,
+                             void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (dtype) {
+    case kI8: err = launch_atomic<int8_t>(values, ids, valid, n, S, out, counts, scratch, st); break;
+    case kI16: err = launch_atomic<int16_t>(values, ids, valid, n, S, out, counts, scratch, st); break;
+    case kI32: err = launch_atomic<int32_t>(values, ids, valid, n, S, out, counts, scratch, st); break;
+    case kI64: err = launch_atomic<int64_t>(values, ids, valid, n, S, out, counts, scratch, st); break;
+    case kU8: err = launch_atomic<uint8_t>(values, ids, valid, n, S, out, counts, scratch, st); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// Stable run order of (values, ids, valid) by key (id in [0, S) ? id : S);
+// itemsize is the values' bytes (1, 2, 4 or 8). n < 2^31.
+long long repro_run_order_scratch_bytes(int itemsize, long long n, int S) {
+  return run_order_scratch(itemsize, n, S);
+}
+
+int repro_run_order(int itemsize, const void* values, const int* ids, const uint8_t* valid,
+                    long long n, int S, void* values_out, int* ids_out, uint8_t* valid_out,
+                    void* scratch, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (itemsize) {
+    case 1: err = launch_run_order<uint8_t>(values, ids, valid, n, S, values_out, ids_out, valid_out, scratch, st); break;
+    case 2: err = launch_run_order<uint16_t>(values, ids, valid, n, S, values_out, ids_out, valid_out, scratch, st); break;
+    case 4: err = launch_run_order<uint32_t>(values, ids, valid, n, S, values_out, ids_out, valid_out, scratch, st); break;
+    case 8: err = launch_run_order<uint64_t>(values, ids, valid, n, S, values_out, ids_out, valid_out, scratch, st); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 const char* repro_cuda_error_string(int code) {

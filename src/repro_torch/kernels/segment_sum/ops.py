@@ -2,10 +2,13 @@
 versions for a CPU tensor.
 
 Same signatures as ``repro.kernels.segment_sum.ops``. A CUDA tensor goes
-to the kernel or the call raises; there is no fallback. The kernels take
-rows in run order, so the wrapper first sorts the ids stably on the
-device (row order within a segment is kept, which the MIN/MAX tie rule
-needs) and gathers values and validity to match.
+to the kernels or the call raises; there is no fallback. An integer SUM
+needs no order: integer atomics give the same bits in any order. A float
+SUM and MIN/MAX take rows in run order, so the wrapper first brings them
+into it with the stable radix partition (``kernel.run_order``: row order
+within a segment is kept, which the MIN/MAX tie rule needs, and every
+step is in a fixed order, so float sums are the same bits every launch).
+No torch sort or gather runs on the card's path.
 
 Each function carries ``launches``: the number of times it launched its
 kernel. CPU calls do not count.
@@ -37,11 +40,6 @@ def _check(values, segment_ids, valid) -> None:
         raise ValueError(f"inputs lie on several devices: {devices}")
 
 
-def _run_order(values, segment_ids, valid):
-    ids, perm = torch.sort(segment_ids, stable=True)
-    return values[perm], ids, valid[perm]
-
-
 def masked_segment_sum(values, segment_ids, valid, num_segments: int):
     """Per-segment SUM over valid lanes + valid-lane counts.
 
@@ -54,8 +52,12 @@ def masked_segment_sum(values, segment_ids, valid, num_segments: int):
     if values.device.type == "cpu":
         return masked_segment_sum_ref(values, segment_ids, valid,
                                       num_segments)
-    out = kernel.segment_sum(*_run_order(values, segment_ids, valid),
-                             num_segments)
+    if values.dtype in kernel.INT_DTYPES:
+        out = kernel.segment_sum_atomic(values, segment_ids, valid,
+                                        num_segments)
+    else:
+        out = kernel.segment_sum(*kernel.run_order(
+            values, segment_ids, valid, num_segments), num_segments)
     with _count_lock:
         masked_segment_sum.launches += 1
     return out
@@ -75,8 +77,8 @@ def masked_segment_reduce(values, segment_ids, valid, num_segments: int,
     if values.device.type == "cpu":
         return masked_segment_reduce_ref(values, segment_ids, valid,
                                          num_segments, op)
-    out = kernel.segment_reduce(*_run_order(values, segment_ids, valid),
-                                num_segments, op)
+    out = kernel.segment_reduce(*kernel.run_order(
+        values, segment_ids, valid, num_segments), num_segments, op)
     with _count_lock:
         masked_segment_reduce.launches += 1
     return out

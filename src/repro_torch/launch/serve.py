@@ -1,6 +1,6 @@
 """Serving launcher: batched requests against a *pinned commit*.
 
-``python -m repro_torch.launch.serve --arch recurrentgemma_9b [--device cpu]``
+``python -m repro_torch.launch.serve [--arch xlstm_350m] [--device cpu]``
 
 The port of ``repro/launch/serve.py``, with its flags and its smoke
 config, on the card unless ``--device`` says otherwise. It publishes
@@ -34,7 +34,7 @@ class _Client:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", choices=ARCHS, default="recurrentgemma_9b")
+    ap.add_argument("--arch", choices=ARCHS, default="xlstm_350m")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)
@@ -75,7 +75,7 @@ def main(argv=None) -> int:
         loop.submit(Request(rid=rid, prompt=prompt, max_new=args.max_new))
 
     loop.run()
-    print(f"[serve] completed {args.requests} requests "
+    print(f"[serve] {cfg.name}: completed {args.requests} requests "
           f"({args.slots} continuous-batching slots) on {device}")
     return 0
 

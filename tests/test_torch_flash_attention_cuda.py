@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.flash_attention import ops, ref
+from repro_torch.kernels.flash_attention import kernel, ops, ref
 
 TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2 ** -7, 1e-5)}
 
@@ -40,7 +40,7 @@ def _qkv(B, H, K, sq, skv, hd, dtype, device, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("hd", [16, 32, 128, 256])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 48),
                                            (False, None)],
                          ids=["causal", "window48", "full"])
@@ -49,11 +49,16 @@ def _qkv(B, H, K, sq, skv, hd, dtype, device, seed=0):
 def test_cuda_kernel_matches_plain(cuda, dtype, hd, causal, window, B, H,
                                    K, S):
     q, k, v = _qkv(B, H, K, S, S, hd, dtype, cuda, seed=hd + S)
+    name = kernel.kernel_for(dtype, hd)
     before = ops.flash_attention.launches
+    by_kernel = ops.flash_attention.launches_by_kernel[name]
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert ops.flash_attention.launches == before + 1
+    assert ops.flash_attention.launches_by_kernel[name] == by_kernel + 1
+    assert name == ("wgmma" if dtype == torch.bfloat16 and hd >= 64
+                    else "simt")
     assert got.dtype == dtype and got.shape == q.shape
     rtol, atol = TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
@@ -86,8 +91,55 @@ def test_cuda_kernel_window_wider_than_sequence_and_empty(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 2048),
+                                           (True, 300), (False, None)],
+                         ids=["causal", "window2048", "window300", "full"])
+@pytest.mark.parametrize("B,H,K,S", [(1, 4, 1, 4096), (2, 4, 1, 1000),
+                                     (1, 8, 2, 1536)],
+                         ids=["mqa-4096", "mqa-ragged", "gqa4"])
+def test_wgmma_kernel_at_long_sequences(cuda, hd, causal, window, B, H, K,
+                                        S):
+    """The bf16 wgmma kernel over many kv tiles and both pipeline
+    stages, within the one-rounding tolerance."""
+    q, k, v = _qkv(B, H, K, S, S, hd, torch.bfloat16, cuda, seed=hd + S)
+    by_kernel = ops.flash_attention.launches_by_kernel["wgmma"]
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert ops.flash_attention.launches_by_kernel["wgmma"] == by_kernel + 1
+    rtol, atol = TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+def test_wgmma_kernel_is_bitwise_repeatable(cuda):
+    q, k, v = _qkv(2, 4, 1, 700, 700, 256, torch.bfloat16, cuda, seed=9)
+    a = ops.flash_attention(q, k, v, causal=True, window=512)
+    b = ops.flash_attention(q, k, v, causal=True, window=512)
+    assert torch.equal(a, b)
+
+
+def test_dispatch_table_raises_outside_both_kernels():
+    """kernel_for names the kernel of each (dtype, head dim) in the
+    table and raises for any other; it needs no card."""
+    assert kernel.kernel_for(torch.bfloat16, 256) == "wgmma"
+    assert kernel.kernel_for(torch.bfloat16, 32) == "simt"
+    assert kernel.kernel_for(torch.float32, 256) == "simt"
+    for dtype, hd in ((torch.bfloat16, 48), (torch.float32, 96),
+                      (torch.bfloat16, 512)):
+        with pytest.raises(ValueError, match="head dim"):
+            kernel.kernel_for(dtype, hd)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kernel.kernel_for(torch.float16, 64)
+
+
+@pytest.mark.cuda
 def test_cuda_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     q, k, v = _qkv(1, 2, 1, 64, 64, 48, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q, k, v)
+    q, k, v = _qkv(1, 2, 1, 64, 64, 96, torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="head dim"):
         ops.flash_attention(q, k, v)
     q, k, v = _qkv(1, 2, 1, 64, 64, 32, torch.float16, cuda)

@@ -16,7 +16,9 @@ import math
 import pytest
 import torch
 
+from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.mlstm import kernel, ops, ref
+from repro_torch.models.model import Model
 
 TOL = 2e-4
 REL = 1e-5      # of max |h|
@@ -27,6 +29,7 @@ CASES = [
     {**MAIN, "S": 64},                      # one tile
     {**MAIN, "BH": 1},
     {**MAIN, "hd": 64},
+    {**MAIN, "BH": 4, "S": 256, "hd": 32},   # the xlstm smoke config's heads
     {**MAIN, "S": 2000},                    # not a multiple of the tile
     {**MAIN, "S": 512, "gates": "extreme"},  # log_f ~ -30, log_i up to +10
 ]
@@ -112,3 +115,35 @@ def test_cuda_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         ops.mlstm(q[:, :100].contiguous(), k[:, :100].contiguous(),
                   v[:, :100].contiguous(), li[:, :100].contiguous(),
                   lf[:, :100].contiguous(), chunk=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [("float32", 1e-4), ("bfloat16", 5e-2)])
+def test_xlstm_smoke_model_prefills_on_the_card(cuda, dtype, rel):
+    """``Model(get_smoke_config("xlstm_350m"))`` (head dim 32) prefills on
+    the card through the kernel, and matches the same model's forward on
+    the CPU (the plain recurrence) with the same params, as
+    max|card - cpu| / max|cpu| of the last logits: float32 within 1e-4
+    (the kernel's chunkwise sums against the sequential order, through
+    two layers), bf16 within 5e-2 (the two devices round bf16
+    activations after products summed in different orders)."""
+    import dataclasses
+    cfg = dataclasses.replace(get_smoke_config("xlstm_350m"), dtype=dtype,
+                              param_dtype=dtype)
+    assert cfg.head_dim == 32
+    model = Model(cfg).init_params(
+        torch.Generator(device=cuda).manual_seed(0))
+    assert model.device.type == "cuda"
+    host = Model(cfg, device="cpu")
+    host.load_state_dict({k: t.cpu() for k, t in model.state_dict().items()})
+    tokens = torch.randint(0, cfg.vocab_size, (2, 128),
+                           generator=torch.Generator().manual_seed(1))
+    before = ops.mlstm.launches
+    got, _ = model(tokens.to(cuda), mode="last_logits")
+    torch.cuda.synchronize()
+    want, _ = host(tokens, mode="last_logits")
+    mlstm_layers = sum(b.kind == "mlstm" for b in model.layers)
+    assert ops.mlstm.launches == before + mlstm_layers > before
+    assert bool(torch.isfinite(got).all())
+    got, want = got.float().cpu(), want.float()
+    assert float((got - want).abs().max()) <= rel * float(want.abs().max())

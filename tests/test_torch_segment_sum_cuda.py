@@ -7,13 +7,18 @@ runs where only the port is installed:
 Tolerances: counts, integers and MIN/MAX bit for bit; a float SUM
 against the CPU's sequential order at rtol 1e-4 (float32) / 1e-12
 (float64), atol 1e-3 for sums near zero, and bit for bit across two
-launches.
+launches. At the slice's sizes, a float SUM within ``SUM_RTOL`` of
+sum(|v|) per segment (as ``chip_smoke.py`` holds it).
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.segment_sum import ops, ref
+from repro_torch.kernels.segment_sum import kernel, ops, ref
+
+N_ROWS = 6_001_215              # lineitem at TPC-H SF1
+INT_DTYPES = [torch.int8, torch.int16, torch.int32, torch.int64, torch.uint8]
+SUM_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 
 
 def _case(n, num_segments, dtype, seed, *, p_valid=0.7, p_nan=0.0):
@@ -76,3 +81,117 @@ def test_cuda_kernel_matches_plain(cuda, dtype, op, n, num_segments):
                                    else 1e-12, atol=1e-3)
     else:
         assert got[0].cpu().numpy().tobytes() == want[0].numpy().tobytes()
+
+
+def _slice_case(n, num_segments, dtype, device, seed, runs=False):
+    """ids over [0, S) with out-of-range ids (-1, S, INT32_MAX), 10%
+    invalid lanes, integers over the dtype's whole range (the sums wrap),
+    floats ~ N(0, 100). ``runs``: the ids sorted, so a group's rows lie
+    together (as Q18's orders do in lineitem)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    ids = torch.randint(0, num_segments, (n,), generator=g, device=device,
+                        dtype=torch.int32)
+    r = torch.rand(n, generator=g, device=device)
+    ids[r < 5e-4] = -1
+    ids[r > 1 - 5e-4] = num_segments
+    ids[(r > 0.5) & (r < 0.5 + 1e-4)] = 2**31 - 1
+    if runs:
+        ids = torch.sort(ids).values
+    valid = torch.rand(n, generator=g, device=device) >= 0.1
+    if dtype.is_floating_point:
+        v = (torch.randn(n, generator=g, device=device,
+                         dtype=torch.float64) * 100).to(dtype)
+    else:
+        info = torch.iinfo(dtype)
+        v = torch.randint(info.min, info.max, (n,), generator=g,
+                          device=device, dtype=torch.int64).to(dtype)
+    return v, ids, valid
+
+
+def _bits(t):
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", INT_DTYPES, ids=str)
+@pytest.mark.parametrize("num_segments", [4, 1_500_000])
+@pytest.mark.parametrize("runs", [False, True], ids=["scattered", "runs"])
+def test_integer_sum_is_exact_at_the_slice_sizes(cuda, dtype, num_segments,
+                                                 runs):
+    """Integer SUM (integer atomics, any order; a run of equal ids within
+    a warp adds up first) and counts bit for bit against the plain
+    version, wraparound included."""
+    v, ids, valid = _slice_case(N_ROWS, num_segments, dtype, cuda, seed=1,
+                                runs=runs)
+    before = ops.masked_segment_sum.launches
+    got, got_n = ops.masked_segment_sum(v, ids, valid, num_segments)
+    want, want_n = ref.masked_segment_sum_ref(v, ids, valid, num_segments)
+    assert ops.masked_segment_sum.launches == before + 1
+    assert torch.equal(got_n, want_n)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", INT_DTYPES, ids=str)
+@pytest.mark.parametrize("num_segments",
+                         [5, 16, 17, 300, 4096, 4097, 20000])
+def test_integer_sum_paths_agree(cuda, dtype, num_segments):
+    """Each atomic shape, reached by S on either side of the source's
+    switch points, gives the plain version's bits."""
+    v, ids, valid = _slice_case(200_003, num_segments, dtype, cuda, seed=2,
+                                runs=num_segments % 2 == 0)
+    want = ref.masked_segment_sum_ref(v, ids, valid, num_segments)
+    got = kernel.segment_sum_atomic(v, ids, valid, num_segments)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("num_segments", [4, 1_500_000])
+def test_float_sum_is_repeatable_and_within_tolerance(cuda, dtype,
+                                                      num_segments):
+    v, ids, valid = _slice_case(N_ROWS, num_segments, dtype, cuda, seed=3)
+    got, got_n = ops.masked_segment_sum(v, ids, valid, num_segments)
+    again, _ = ops.masked_segment_sum(v, ids, valid, num_segments)
+    want, want_n = ref.masked_segment_sum_ref(v, ids, valid, num_segments)
+    mass, _ = ref.masked_segment_sum_ref(v.abs(), ids, valid, num_segments)
+    assert torch.equal(got_n, want_n)
+    assert torch.equal(_bits(got), _bits(again))
+    diff = (got.double() - want.double()).abs()
+    assert bool((diff <= SUM_RTOL[dtype] * mass.double()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["min", "max"])
+@pytest.mark.parametrize("num_segments", [4, 1_500_000])
+def test_min_max_tie_signs_after_the_partition(cuda, op, num_segments):
+    """Every value a signed zero: the later row of a tie wins, so the
+    sign of each segment's result is the plain version's, bit for bit."""
+    _, ids, valid = _slice_case(N_ROWS, num_segments, torch.int8, cuda,
+                                seed=4)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    v = torch.where(torch.rand(N_ROWS, generator=g, device=cuda) < 0.5,
+                    -0.0, 0.0).to(torch.float64)
+    got, got_n = ops.masked_segment_reduce(v, ids, valid, num_segments,
+                                           op=op)
+    want, want_n = ref.masked_segment_reduce_ref(v, ids, valid,
+                                                 num_segments, op)
+    assert torch.equal(got_n, want_n)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_segments", [1, 4, 255, 256, 70_000, 1_500_000])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.float32,
+                                   torch.float64], ids=str)
+def test_run_order_is_a_stable_partition(cuda, num_segments, dtype):
+    """The radix partition is a stable sort by key (id in [0, S) ? id :
+    S), with values and validity carried along."""
+    v, ids, valid = _slice_case(300_007, num_segments, dtype, cuda, seed=6)
+    got_v, got_i, got_m = kernel.run_order(v, ids, valid, num_segments)
+    keys = torch.where((ids >= 0) & (ids < num_segments), ids, num_segments)
+    want_i, perm = torch.sort(keys, stable=True)
+    assert torch.equal(got_i, want_i)
+    assert torch.equal(_bits(got_v), _bits(v[perm]))
+    assert torch.equal(got_m, valid[perm])

@@ -8,7 +8,8 @@
   replica's params bit-equal.
 - A checkpoint that ``repro``'s ``CheckpointManager`` wrote into a
   ``FileStore`` reads into the port with the same params, bit for bit.
-- The launcher runs on the CPU when asked.
+- The launcher runs on the CPU when asked, and serves the same
+  architecture as ``repro``'s when no ``--arch`` is given.
 """
 import dataclasses
 
@@ -142,3 +143,32 @@ def test_launcher_runs_on_the_cpu(arch, capsys):
     out = capsys.readouterr().out
     assert "pinned replica to tag serving/v0" in out
     assert "completed 4 requests" in out
+
+
+def test_launcher_defaults_to_repros_arch(monkeypatch, capsys):
+    """With no ``--arch`` the port's launcher serves what ``repro``'s
+    serves by default: xlstm_350m."""
+    from repro.launch import serve as jserve
+    picked = {}
+
+    class _Stop(Exception):
+        pass
+
+    def spy(mod, key, stop):
+        real = mod.get_smoke_config
+
+        def get(arch):
+            picked[key] = arch
+            if stop:
+                raise _Stop
+            return real(arch)
+        monkeypatch.setattr(mod, "get_smoke_config", get)
+
+    spy(jserve, "repro", True)    # read repro's default, serve nothing
+    spy(serve, "port", False)
+    with pytest.raises(_Stop):
+        jserve.main([])
+    assert serve.main(["--device", "cpu", "--requests", "2",
+                       "--max-new", "2"]) == 0
+    assert picked == {"repro": "xlstm_350m", "port": "xlstm_350m"}
+    assert "xlstm-350m: completed 2 requests" in capsys.readouterr().out
