@@ -21,9 +21,11 @@ before the result line):
    MIN/MAX bit for bit (the sign of a zero included) and across two
    launches, float sums within the tolerance below and bitwise across
    two launches; the int64 SUM at S = 1.5M again with the ids in
-   runs, as Q18's orders lie in lineitem, and at S = 175, as in Q9. A row times the wrapper, and
-   apart its two steps: the run-order partition (float SUM, MIN/MAX) and
-   the reduction kernel. The probe
+   runs, as Q18's orders lie in lineitem, and at S = 175, as in Q9;
+   MIN/MAX also at S = 16, 17, 175 and 4096, the edges of the atomic
+   kernels' three shapes. A row times the wrapper and the kernel alone
+   (a float SUM apart its two steps: the run-order partition and the
+   reduction kernel). The probe
    kernels at n = 6,001,215 and n = 1,500,000 lanes into a table of
    T = 2^23 slots, with out-of-range lanes (negative, >= T, the int32
    sentinel), empty slots, duplicate keys and masked lanes, bit for bit;
@@ -302,12 +304,13 @@ def check_config(torch, kernel, ops, ref, op, dtype, num_segments, kind,
         expect(torch.equal(bits(torch, got), bits(torch, want)),
                op, dtype, num_segments, kind, "values differ")
 
-    # times: the wrapper, its two steps apart (the run-order partition,
-    # then the reduction kernel on its output; an integer SUM has no
-    # partition), the plain version, and one PyTorch library call on
-    # inputs prepared for it (ids in range, masked lanes at the identity)
+    # times: the wrapper, the kernel alone (a float SUM's two steps
+    # apart: the run-order partition, then the reduction kernel on its
+    # output; integer SUMs and MIN/MAX have no partition), the plain
+    # version, and one PyTorch library call on inputs prepared for it
+    # (ids in range, masked lanes at the identity)
     partition = None
-    if not (op == "sum" and dtype in INT_DTYPES):
+    if op == "sum" and dtype not in INT_DTYPES:
         partition = lambda: kernel.run_order(v, ids, valid, num_segments)
         ordered = partition()
     inside = (ids >= 0) & (ids < num_segments)
@@ -322,7 +325,8 @@ def check_config(torch, kernel, ops, ref, op, dtype, num_segments, kind,
         lib = lambda: torch.zeros(num_segments, dtype=dtype,
                                   device=DEVICE).index_add_(0, safe, vm)
     else:
-        alone = lambda: kernel.segment_reduce(*ordered, num_segments, op)
+        alone = lambda: kernel.segment_reduce(v, ids, valid, num_segments,
+                                              op)
         ident = ref.reduce_identity(ref.numpy_dtype(dtype), op).item()
         vm = torch.where(valid & inside, v,
                          torch.full((), ident, dtype=dtype, device=DEVICE))
@@ -337,9 +341,9 @@ def check_config(torch, kernel, ops, ref, op, dtype, num_segments, kind,
     return {
         "op": op, "dtype": str(dtype).split(".")[1], "S": num_segments,
         "kind": kind, "max_abs_err": err, "ms": cuda_ms(torch, call),
-        "partition_ms": None if partition is None
-        else cuda_ms(torch, partition),
-        "reduce_ms": cuda_ms(torch, alone),
+        **({} if partition is None
+           else {"partition_ms": cuda_ms(torch, partition)}),
+        "kernel_only_ms": cuda_ms(torch, alone),
         "plain_ms": cuda_ms(torch, plain, reps=3),
         "library_ms": None if lib is None else cuda_ms(torch, lib, reps=3),
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
@@ -373,6 +377,18 @@ def phase_kernels(torch):
     rows.append(check_config(torch, kernel, ops, ref, "sum", torch.int64,
                              Q9_GROUPS, "plain", g))
     log("kernel " + json.dumps(rows[-1]))
+    # MIN/MAX at the edges of the atomic kernels' shapes (registers to
+    # S = 16, shared bins to 4096) and at Q9's 175 groups
+    for num_segments in (16, 17, Q9_GROUPS, 4096):
+        for dtype in (torch.int8, torch.int32, torch.int64, torch.float32,
+                      torch.float64):
+            kinds = ["plain"] + (["nan", "zeros"]
+                                 if dtype.is_floating_point else [])
+            for op in ("min", "max"):
+                for kind in kinds:
+                    rows.append(check_config(torch, kernel, ops, ref, op,
+                                             dtype, num_segments, kind, g))
+                    log("kernel " + json.dumps(rows[-1]))
     v, ids, valid = make_inputs(torch, torch.float64, Q18_GROUPS, "plain", g)
     profile_device(torch, "run-order partition, float64, S=1.5M, x5",
                    lambda: [kernel.run_order(v, ids, valid, Q18_GROUPS)
@@ -1238,10 +1254,10 @@ MLSTM_MAIN = dict(BH=XLSTM_BATCH * 4, S=XLSTM_LEN, hd=256,   # 4 heads
 MLSTM_CASES = [
     MLSTM_MAIN,                              # every mLSTM block's call
     {**MLSTM_MAIN, "dtype": "float32"},
-    {**MLSTM_MAIN, "S": 64},                 # one tile
+    {**MLSTM_MAIN, "S": 64},                 # one chunk
     {**MLSTM_MAIN, "BH": 1},
     {**MLSTM_MAIN, "hd": 64},
-    {**MLSTM_MAIN, "S": 2000},               # not a multiple of the tile
+    {**MLSTM_MAIN, "S": 2000},               # not a multiple of the chunk
     {**MLSTM_MAIN, "gates": "extreme"},
 ]
 
@@ -1357,10 +1373,11 @@ def mlstm_case(torch, case: dict, g):
     }
 
 
-def mlstm_tag(case: dict) -> str:
-    """The mangled-name fragment of the instantiation a case runs."""
+def mlstm_tag(case: dict, kernel: str) -> str:
+    """The mangled-name fragment of the instantiation a case runs of the
+    ``state`` or ``output`` kernel."""
     elem = {"bfloat16": "13__nv_bfloat16", "float32": "f"}[case["dtype"]]
-    return f"mlstm_chunkwise_kernelI{elem}Li{case['hd']}E"
+    return f"mlstm_{kernel}_kernelI{elem}Li{case['hd']}E"
 
 
 def phase_mlstm_kernels(torch, ptxas: dict):
@@ -1368,8 +1385,10 @@ def phase_mlstm_kernels(torch, ptxas: dict):
     g.manual_seed(3)
     rows = []
     for case in MLSTM_CASES:
+        state = ptxas_of(ptxas, "mlstm_chunkwise", mlstm_tag(case, "state"))
         rows.append({**mlstm_case(torch, case, g), **ptxas_of(
-            ptxas, "mlstm_chunkwise", mlstm_tag(case))})
+            ptxas, "mlstm_chunkwise", mlstm_tag(case, "output")),
+            **{f"state_{k}": x for k, x in state.items()}})
         log("kernel " + json.dumps(rows[-1]))
     return rows
 
@@ -1538,8 +1557,7 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
-            "partition_ms": row["partition_ms"],
-            "reduce_ms": row["reduce_ms"],
+            "kernel_only_ms": row["kernel_only_ms"],
             "shape": f"n={N_ROWS} S={s} {dt} {op}",
             "h2d_ms": copy_ms,
         })

@@ -20,9 +20,9 @@ The blob layout is the same as ``repro``'s, so a store written by either
 package reads in the other. bfloat16, which numpy lacks, is stored as
 its raw bits under a one-line dtype header, as ``repro`` stores it; the
 port reads such a blob back as a torch tensor
-(:meth:`ObjectStore.get_tensor`) and never needs ``ml_dtypes``. Table
-columns are numpy arrays, so a bfloat16 column cannot be read
-(ROADMAP Queue 4).
+(:meth:`ObjectStore.get_tensor`) and never needs ``ml_dtypes``. A
+bfloat16 table column comes back as its bits under the port's tagged
+dtype (:meth:`ObjectStore.get_column`, :mod:`repro_torch.data.bfloat16`).
 """
 from __future__ import annotations
 
@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.hooks import fault_point
+from repro_torch.data import bfloat16
 
 __all__ = ["ObjectStore", "MemoryStore", "FileStore", "put_pytree",
            "get_pytree", "get_pytree_leaves", "tree_flatten",
@@ -103,6 +104,8 @@ class ObjectStore:
 
     def put_array(self, arr) -> str:
         arr = np.asarray(arr)
+        if bfloat16.is_bfloat16(arr.dtype):
+            return self._put_blob("bfloat16", bfloat16.bits(arr))
         # ml_dtypes (bfloat16 etc.) are not .npy-native: store the raw
         # bits viewed as uint and a one-line dtype header.
         dtype_name = arr.dtype.name
@@ -131,10 +134,17 @@ class ObjectStore:
         if raw.dtype.name != dtype_name:
             raise TypeError(
                 f"blob {key[:12]} holds {dtype_name}, which numpy lacks: "
-                f"read it as a torch tensor with get_tensor; a table "
-                f"column of that dtype is not supported by the port "
-                f"(ROADMAP Queue 4)")
+                f"read it as a torch tensor with get_tensor, or as a "
+                f"table column with get_column")
         return raw
+
+    def get_column(self, key: str) -> np.ndarray:
+        """A table column: :meth:`get_array`, and for a bfloat16 blob
+        its bits under :data:`repro_torch.data.bfloat16.BFLOAT16`."""
+        dtype_name, raw = self._get_blob(key)
+        if dtype_name == "bfloat16" and raw.dtype == np.uint16:
+            return bfloat16.from_bits(raw)
+        return self.get_array(key)
 
     def put_tensor(self, t: torch.Tensor) -> str:
         """Store a tensor (moved to the host) as the same bytes ``repro``

@@ -30,6 +30,7 @@ from typing import Any, Callable, Iterable, Mapping, Sequence
 import numpy as np
 
 from repro_torch import exec as exec_backends
+from repro_torch.data import bfloat16
 
 __all__ = ["Table", "GroupedTable", "resolve_agg_specs", "col", "lit",
            "str_lit", "arrow_cast", "Expr"]
@@ -144,7 +145,8 @@ class Table:
             return _NP_TO_LOGICAL[key]
         if np.issubdtype(arr.dtype, np.datetime64):
             return "datetime"
-        raise TypeError(f"column {name!r}: unmapped dtype {arr.dtype}")
+        raise TypeError(f"column {name!r}: unmapped dtype "
+                        f"{bfloat16.dtype_name(arr.dtype)}")
 
     def has_nulls(self, name: str) -> bool:
         return self._data[name].has_nulls
@@ -152,7 +154,9 @@ class Table:
     def to_pydict(self) -> dict[str, list]:
         out = {}
         for name, c in self._data.items():
-            vals = c.values.tolist()
+            vals = (bfloat16.tolist(c.values)
+                    if bfloat16.is_bfloat16(c.values.dtype)
+                    else c.values.tolist())
             if c.valid is not None:
                 vals = [v if ok else None
                         for v, ok in zip(vals, c.valid)]
@@ -202,7 +206,8 @@ class Table:
             # the logical dtype already.
             manifest["columns"][name] = {"values": key, "valid": vkey,
                                          "kind": kind,
-                                         "dtype": str(vals.dtype)}
+                                         "dtype": bfloat16.dtype_name(
+                                             vals.dtype)}
         return store.put_json(manifest)
 
     @classmethod
@@ -210,7 +215,7 @@ class Table:
         manifest = store.get_json(key)
         data: dict[str, _ColumnData] = {}
         for name, m in manifest["columns"].items():
-            vals = store.get_array(m["values"])
+            vals = store.get_column(m["values"])
             valid = (store.get_array(m["valid"])
                      if m["valid"] is not None else None)
             if m["kind"] == "str":
@@ -485,7 +490,7 @@ class Expr:
                 if valid.any():
                     vals[valid] = op(lv[valid], rv[valid])
             else:
-                vals = op(lv, rv)
+                vals = bfloat16.apply_ufunc(op, lv, rv)
             return vals, valid
         refs = (self._refs | other_e._refs
                 if self._refs is not None and other_e._refs is not None
@@ -498,7 +503,7 @@ class Expr:
     def _unop(self, op, sym: str) -> "Expr":
         def fn(t: Table):
             vals, valid = self._fn(t)
-            return op(vals), valid
+            return bfloat16.apply_ufunc(op, vals), valid
         return Expr(fn, f"({sym}{self._name})", f"({sym}{self._desc})",
                     _structural=self._structural, refs=self._refs)
 
@@ -554,7 +559,7 @@ def arrow_cast(expr: Expr, target: str) -> Expr:
 
     def fn(t: Table):
         vals, valid = expr.evaluate(t)
-        return vals.astype(np_t), valid
+        return bfloat16.astype(vals, np_t), valid
     e = Expr(fn, expr.output_name(), f"cast({expr._desc}, {target})",
              _structural=expr._structural, refs=expr._refs)
     e.cast_target = _ARROW_TO_LOGICAL.get(target, target)  # type: ignore

@@ -40,7 +40,10 @@ from typing import Mapping, Sequence
 
 import numpy as np
 
+from repro_torch.data import bfloat16
+
 __all__ = ["Columns", "Backend", "fill_value", "payload_validity",
+           "refuse_bfloat16_keys",
            "AGG_FNS", "AggSpec", "normalize_agg_specs"]
 
 # {column name: (values, validity-or-None)} — insertion order is column
@@ -92,6 +95,7 @@ def normalize_agg_specs(cols: Columns, keys: Sequence[str],
     Checks fn vocabulary, value-column existence, and output-name
     collisions (against the group keys and between specs). Returns the
     specs as a plain tuple so backends can hash/iterate it freely."""
+    refuse_bfloat16_keys((cols,), keys, "GROUP BY")
     out: list[AggSpec] = []
     seen: set[str] = set(keys)
     for spec in specs:
@@ -110,6 +114,19 @@ def normalize_agg_specs(cols: Columns, keys: Sequence[str],
     if not out:
         raise ValueError("group_by_agg requires at least one spec")
     return tuple(out)
+
+
+def refuse_bfloat16_keys(sides: Sequence[Columns], keys: Sequence[str],
+                         op: str) -> None:
+    """A bfloat16 key column raises: the backends compare keys by their
+    payload, and bfloat16 bits do not compare as the values do (``±0.0``
+    differ, NaNs are equal). bfloat16 *value* columns are supported."""
+    for cols in sides:
+        for k in keys:
+            if k in cols and bfloat16.is_bfloat16(cols[k][0].dtype):
+                raise TypeError(
+                    f"{op} on bfloat16 key column {k!r} is not supported "
+                    f"by the port; cast the key first")
 
 
 class Backend:

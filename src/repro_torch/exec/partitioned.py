@@ -46,7 +46,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.exec.base import Columns, _column_length, payload_validity
+from repro_torch.exec.base import (Columns, _column_length, payload_validity,
+                                   refuse_bfloat16_keys)
 from repro_torch.exec.torch_backend import TorchBackend
 from repro_torch.exec.vectorized import (VectorizedBackend, _and_key_validity,
                                          _join_codes)
@@ -155,6 +156,7 @@ class PartitionedBackend(TorchBackend):
     def _partitioned_join(self, left: Columns, right: Columns,
                           on: Sequence[str], how: str,
                           probe_mask: "np.ndarray | None") -> Columns:
+        refuse_bfloat16_keys((left, right), on, "join")
         n_left = _column_length(left)
         n_right = _column_length(right)
         ndev = self.partitions

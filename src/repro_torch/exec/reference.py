@@ -21,9 +21,10 @@ from typing import Any, Sequence
 
 import numpy as np
 
+from repro_torch.data import bfloat16
 from repro_torch.exec.base import (AggSpec, Backend, Columns, _column_length,
                              fill_value, normalize_agg_specs,
-                             payload_validity)
+                             payload_validity, refuse_bfloat16_keys)
 
 __all__ = ["ReferenceBackend"]
 
@@ -42,6 +43,7 @@ class ReferenceBackend(Backend):
         # not true). Inner: null-keyed rows are dropped from both sides;
         # left: null-keyed/unmatched left rows survive with NULL right
         # columns.
+        refuse_bfloat16_keys((left, right), on, "join")
         lok = self._key_validity(left, on)
         rok = self._key_validity(right, on)
         lkeys = list(zip(*(left[k][0] for k in on)))
@@ -143,6 +145,13 @@ class ReferenceBackend(Backend):
                  ) -> tuple[np.ndarray, np.ndarray | None]:
         vals, valid = col
         ok = payload_validity(vals, valid)
+        if bfloat16.is_bfloat16(vals.dtype) and fn != "count":
+            # the same row-order accumulation over ml_dtypes' scalar
+            # ops, vectorized across groups (bfloat16.group_fold)
+            acc, counts = bfloat16.group_fold(fn, vals, ok, gid, n_groups)
+            if fn == "mean":
+                return bfloat16.mean(acc, counts), counts > 0
+            return acc, counts > 0
         counts = np.zeros(n_groups, dtype=np.int64)
         acc: list[Any] = [None] * n_groups
         is_object = vals.dtype == object

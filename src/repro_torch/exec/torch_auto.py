@@ -10,6 +10,7 @@ device="cpu")`` runs every row on the CPU and never touches CUDA.
 ====================  =========================================  ===========
 operation             condition (first match wins)               backend
 ====================  =========================================  ===========
+group_by_agg          a bfloat16 value column                    vectorized
 join / group_by_agg   total rows <= tiny (64)                    reference
 join                  total rows >= shard rows (200,000)         partitioned
 join                  anything else                              vectorized
@@ -17,6 +18,11 @@ group_by_agg          rows >= device rows (100,000) and every    torch
                       value dtype lowers (``kernels/device.py``)
 group_by_agg          anything else                              vectorized
 ====================  =========================================  ===========
+
+A bfloat16 value column is aggregated on the host, whatever its size:
+the segment kernels take no bfloat16, and ``ml_dtypes`` rounds a sum
+to bfloat16 at every step, which the host backends reproduce bit for
+bit. The rule reads dtypes only, so it is decided before any launch.
 
 Tiny tables are dominated by per-call constants, where the reference's
 plain dicts beat any array setup; large joins go to the hash-probe
@@ -45,6 +51,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.data import bfloat16
 from repro_torch.exec import BackendUnavailable
 from repro_torch.exec.base import (AggSpec, Backend, Columns,
                                    normalize_agg_specs)
@@ -86,6 +93,10 @@ def explain_group_by_agg(stats: TableStats,
                          value_dtypes: Sequence[np.dtype]
                          ) -> tuple[str, str]:
     """The group_by_agg decision table, returning ``(backend, why)``."""
+    if any(bfloat16.is_bfloat16(dt) for dt in value_dtypes):
+        return "vectorized", (
+            "bfloat16 value column: aggregated on the host, rounded as "
+            "ml_dtypes rounds (no device bfloat16 aggregation)")
     if stats.n_rows <= TINY_ROWS:
         return "reference", (
             f"rows {stats.n_rows} <= tiny threshold {TINY_ROWS}")

@@ -15,9 +15,9 @@ Exactness contract with the ``reference`` oracle:
 - float sums are exact up to summation order (the documented
   carve-out), and bitwise the same on every run of one device;
 - int64 and float64 stay on the device: torch has native 64-bit types,
-  so there is no x64 flag to fall back on. Object, datetime, bool and
-  wide unsigned columns take the vectorized host path — the same
-  semantic routing the JAX backend does, not a fallback.
+  so there is no x64 flag to fall back on. Object, datetime, bool,
+  bfloat16 and wide unsigned columns take the vectorized host path —
+  the same semantic routing the JAX backend does, not a fallback.
 """
 from __future__ import annotations
 

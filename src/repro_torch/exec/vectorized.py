@@ -39,9 +39,10 @@ from typing import Sequence
 
 import numpy as np
 
+from repro_torch.data import bfloat16
 from repro_torch.exec.base import (AggSpec, Backend, Columns, _column_length,
                              fill_value, normalize_agg_specs,
-                             payload_validity)
+                             payload_validity, refuse_bfloat16_keys)
 
 __all__ = ["VectorizedBackend", "dense_span_affordable", "reduce_ident"]
 
@@ -209,6 +210,14 @@ def _group_runs(codes: np.ndarray
     return order, bounds, grp_order, first_rows[grp_order]
 
 
+def _run_gid(order: np.ndarray, bounds: np.ndarray, n: int) -> np.ndarray:
+    """Each row's group run, numbered in code order (``_group_runs``)."""
+    gid = np.empty(n, dtype=np.int64)
+    gid[order] = np.repeat(np.arange(len(bounds)),
+                           np.diff(np.r_[bounds, n]))
+    return gid
+
+
 def _and_key_validity(cols: Columns, on: Sequence[str],
                       mask: np.ndarray) -> Columns:
     """AND a keep-mask into the *key columns'* validity (shallow copy).
@@ -238,6 +247,7 @@ class VectorizedBackend(Backend):
     # -- join -----------------------------------------------------------
     def hash_join(self, left: Columns, right: Columns,
                   on: Sequence[str], how: str = "inner") -> Columns:
+        refuse_bfloat16_keys((left, right), on, "join")
         fast = self._single_key_probe(left, right, on)
         if fast is not None:
             n_left, starts, counts, ridx = fast
@@ -499,6 +509,8 @@ class VectorizedBackend(Backend):
             return np.array([], dtype=np.float64), has
         counts = np.add.reduceat(
             ok[order].astype(np.int64), bounds)[grp_order]
+        if bfloat16.is_bfloat16(values.dtype):
+            return bfloat16.mean(sums, counts), has
         means = sums.astype(np.float64)
         np.divide(means, counts, out=means, where=has)
         means[~has] = fill_value(np.dtype(np.float64))
@@ -509,6 +521,12 @@ class VectorizedBackend(Backend):
         vdt = values.dtype
         if n_groups == 0:
             return (np.array([], dtype=vdt), np.array([], dtype=bool))
+        if bfloat16.is_bfloat16(vdt):
+            # the row loop below, over ml_dtypes' minimum/maximum
+            red, counts = bfloat16.group_fold(
+                fn, values, ok, _run_gid(order, bounds, len(values)),
+                n_groups)
+            return red[grp_order], counts[grp_order] > 0
         if vdt != object and vdt.kind in "fiub":
             # invalid lanes are parked at the identity so they never
             # win; NaN in a *valid* float lane propagates through
@@ -565,6 +583,16 @@ class VectorizedBackend(Backend):
         # invalid lanes contribute the additive identity instead of
         # being dropped: exact for integers, and for floats at most a
         # signed-zero/ulp effect inside the documented float carve-out.
+        if bfloat16.is_bfloat16(vdt):
+            # reduceat over ml_dtypes' add loop: +0.0 in invalid lanes,
+            # rounded to bfloat16 at each step, rows in run order
+            gid = _run_gid(order, bounds, len(values))
+            masked = np.where(ok, values, np.zeros(1, dtype=vdt)[0])
+            sums, _ = bfloat16.group_fold(
+                "sum", masked, np.ones(len(values), dtype=bool), gid,
+                n_groups)
+            has = np.bincount(gid[ok], minlength=n_groups) > 0
+            return sums[grp_order], has[grp_order]
         masked = np.where(ok, values, np.zeros(1, dtype=vdt)[0])[order]
         # row order within a run is preserved (stable sort), so integer
         # sums are bit-identical to the reference; float sums can differ

@@ -3,7 +3,8 @@
 The source is built at first use by :mod:`repro_torch.kernels.build`
 (``nvcc`` for ``sm_90a``, a plain C interface, ``ctypes``). Nothing is
 built or loaded when this module is imported. The wrapper allocates the
-float32 output and launches on PyTorch's current stream.
+float32 output and the states at the chunk starts (scratch), and launches
+the kernel's three passes on PyTorch's current stream.
 """
 from __future__ import annotations
 
@@ -24,8 +25,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def _bind(lib: ctypes.CDLL) -> None:
     ptr, i = ctypes.c_void_p, ctypes.c_int
+    lib.repro_mlstm_scratch_bytes.argtypes = [i, i, i]
+    lib.repro_mlstm_scratch_bytes.restype = ctypes.c_longlong
     lib.repro_mlstm_chunkwise.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i, i,
-                                          i, i, ctypes.c_float, ptr]
+                                          i, i, ctypes.c_float, ptr, ptr]
     lib.repro_mlstm_chunkwise.restype = i
     lib.repro_mlstm_chunkwise_error_string.argtypes = [i]
     lib.repro_mlstm_chunkwise_error_string.restype = ctypes.c_char_p
@@ -68,7 +71,7 @@ def _check(q, k, v, log_i, log_f) -> None:
     BH, S, hd = q.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
-    if BH > 65535 or BH * S * hd >= 2**62:
+    if BH > 65535 or S > 64 * 65535 or BH * S * hd >= 2**62:
         raise ValueError(f"shape {tuple(q.shape)} too large")
 
 
@@ -79,12 +82,14 @@ def mlstm_chunkwise(q, k, v, log_i, log_f):
     lib = _LIBRARY.load()
     BH, S, hd = q.shape
     h = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    scratch = torch.empty(lib.repro_mlstm_scratch_bytes(BH, S, hd),
+                          dtype=torch.uint8, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         rc = lib.repro_mlstm_chunkwise(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), log_i.data_ptr(),
             log_f.data_ptr(), h.data_ptr(), _DTYPES[q.dtype], BH, S, hd,
-            1.0 / math.sqrt(hd), stream)
+            1.0 / math.sqrt(hd), scratch.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(
             f"mLSTM kernel launch failed: "

@@ -4,10 +4,10 @@ The source is built at first use by :mod:`repro_torch.kernels.build`
 (``nvcc`` for ``sm_90a``, a plain C interface, ``ctypes``). Nothing is
 built or loaded when this module is imported.
 
-``segment_sum`` and ``segment_reduce`` take rows in run order (ids
-sorted, non-decreasing) on the card; ``run_order`` brings arbitrary ids
-into that order with a stable radix partition, and ``segment_sum_atomic``
-sums integers in any order.
+``segment_sum_atomic`` sums integers and ``segment_reduce`` takes
+MIN/MAX in any row order, with integer atomics. ``segment_sum`` sums
+floats over rows in run order (ids sorted, non-decreasing), which
+``run_order`` brings arbitrary ids into with a stable radix partition.
 """
 from __future__ import annotations
 
@@ -37,9 +37,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.repro_segment_sum.argtypes = [
         i, ptr, ptr, ptr, ll, i, ptr, ptr, ptr, ptr]
     lib.repro_segment_sum.restype = i
-    lib.repro_segment_reduce.argtypes = [
+    lib.repro_segment_reduce_atomic.argtypes = [
         i, i, ptr, ptr, ptr, ll, i, ptr, ptr, ptr, ptr]
-    lib.repro_segment_reduce.restype = i
+    lib.repro_segment_reduce_atomic.restype = i
     lib.repro_segment_atomic_scratch_bytes.argtypes = [ll]
     lib.repro_segment_atomic_scratch_bytes.restype = ll
     lib.repro_segment_sum_atomic.argtypes = [
@@ -94,8 +94,13 @@ def _raise(lib, what: str, rc: int) -> None:
             f"{lib.repro_cuda_error_string(rc).decode()}")
 
 
-def _launch(op: str, values, ids, valid, num_segments: int):
+def segment_sum(values, ids, valid, num_segments: int):
+    """Masked segment SUM of float values over run-ordered rows on the
+    card: (sums (S,) values.dtype, counts (S,) int32)."""
     _check(values, ids, valid, num_segments)
+    if values.dtype in INT_DTYPES:
+        raise TypeError("the run-order SUM takes floats; integers go to "
+                        "segment_sum_atomic")
     lib = _LIBRARY.load()
     dev = values.device
     n = len(values)
@@ -104,27 +109,36 @@ def _launch(op: str, values, ids, valid, num_segments: int):
     scratch = torch.empty(lib.repro_segment_scratch_bytes(n),
                           dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    args = (values.data_ptr(), ids.data_ptr(), valid.data_ptr(), n,
-            num_segments, out.data_ptr(), counts.data_ptr(),
-            scratch.data_ptr(), stream)
-    code = _CODES[values.dtype]
     with torch.cuda.device(dev):
-        rc = (lib.repro_segment_sum(code, *args) if op == "sum"
-              else lib.repro_segment_reduce(code, _OPS[op], *args))
-    _raise(lib, f"segment {op} kernel", rc)
+        rc = lib.repro_segment_sum(
+            _CODES[values.dtype], values.data_ptr(), ids.data_ptr(),
+            valid.data_ptr(), n, num_segments, out.data_ptr(),
+            counts.data_ptr(), scratch.data_ptr(), stream)
+    _raise(lib, "segment SUM kernel", rc)
     return out, counts
 
 
-def segment_sum(values, ids, valid, num_segments: int):
-    """Masked segment SUM over run-ordered rows on the card:
-    (sums (S,) values.dtype, counts (S,) int32)."""
-    return _launch("sum", values, ids, valid, num_segments)
-
-
 def segment_reduce(values, ids, valid, num_segments: int, op: str):
-    """Masked segment MIN/MAX over run-ordered rows on the card:
-    (reduced (S,) values.dtype, counts (S,) int32)."""
-    return _launch(op, values, ids, valid, num_segments)
+    """Masked segment MIN/MAX in any row order, with integer atomics on
+    order-preserving keys: (reduced (S,) values.dtype, counts (S,)
+    int32). The source picks the shape by S, as for the integer SUM."""
+    _check(values, ids, valid, num_segments)
+    if op not in _OPS:
+        raise ValueError(f"unknown segment reduce op: {op!r}")
+    lib = _LIBRARY.load()
+    dev = values.device
+    out = torch.empty(num_segments, dtype=values.dtype, device=dev)
+    counts = torch.empty(num_segments, dtype=torch.int32, device=dev)
+    scratch = torch.empty(lib.repro_segment_atomic_scratch_bytes(
+        num_segments), dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.repro_segment_reduce_atomic(
+            _CODES[values.dtype], _OPS[op], values.data_ptr(),
+            ids.data_ptr(), valid.data_ptr(), len(values), num_segments,
+            out.data_ptr(), counts.data_ptr(), scratch.data_ptr(), stream)
+    _raise(lib, f"segment {op} kernel", rc)
+    return out, counts
 
 
 def segment_sum_atomic(values, ids, valid, num_segments: int):

@@ -3,12 +3,11 @@ versions for a CPU tensor.
 
 Same signatures as ``repro.kernels.segment_sum.ops``. A CUDA tensor goes
 to the kernels or the call raises; there is no fallback. An integer SUM
-needs no order: integer atomics give the same bits in any order. A float
-SUM and MIN/MAX take rows in run order, so the wrapper first brings them
-into it with the stable radix partition (``kernel.run_order``: row order
-within a segment is kept, which the MIN/MAX tie rule needs, and every
-step is in a fixed order, so float sums are the same bits every launch).
-No torch sort or gather runs on the card's path.
+and every MIN/MAX need no order: integer atomics give the same bits in
+any order. A float SUM takes rows in run order, so the wrapper first
+brings them into it with the stable radix partition (``kernel.run_order``:
+every step in a fixed order, so float sums are the same bits every
+launch). No torch sort, gather or scatter runs on the card's path.
 
 Each function carries ``launches``: the number of times it launched its
 kernel. CPU calls do not count.
@@ -77,8 +76,8 @@ def masked_segment_reduce(values, segment_ids, valid, num_segments: int,
     if values.device.type == "cpu":
         return masked_segment_reduce_ref(values, segment_ids, valid,
                                          num_segments, op)
-    out = kernel.segment_reduce(*kernel.run_order(
-        values, segment_ids, valid, num_segments), num_segments, op)
+    out = kernel.segment_reduce(values, segment_ids, valid, num_segments,
+                                op)
     with _count_lock:
         masked_segment_reduce.launches += 1
     return out

@@ -208,7 +208,7 @@ def attention_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         raise NotImplementedError(
             f"attention kind {kind!r}: cross attention belongs to the "
             f"encoder-decoder models, not ported yet (ROADMAP Queue 1 "
-            f"item 9)")
+            f"item 5)")
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]

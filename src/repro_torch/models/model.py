@@ -9,7 +9,7 @@ keeps one module per layer, in order, and loops
 (``convert.params_from_jax`` unstacks ``repro``'s parameters into it).
 Mixture-of-experts FFNs, the audio encoder and the vision front end are
 not ported yet and raise ``NotImplementedError`` (ROADMAP Queue 1 item
-9).
+5).
 
 Entry points, as in ``repro``:
 
@@ -116,7 +116,7 @@ class Model(L.ParamModule):
         if why is not None:
             raise NotImplementedError(
                 f"{cfg.name}: {why} are not ported to repro_torch yet "
-                f"(ROADMAP Queue 1 item 9)")
+                f"(ROADMAP Queue 1 item 5)")
         dt = getattr(torch, cfg.param_dtype)
         top = {"embed": ((cfg.padded_vocab, cfg.d_model), dt, 0.02)}
         if not cfg.tie_embeddings:

@@ -1,7 +1,7 @@
 """AdamW state, as much of ``repro/training/optimizer.py`` as serving
 needs: the launcher publishes a fresh optimizer state beside the
 parameters in every checkpoint. The update rule, schedules and clipping
-come with the training slice (ROADMAP Queue 1 item 10).
+come with the training slice (ROADMAP Queue 1 item 4).
 """
 from __future__ import annotations
 

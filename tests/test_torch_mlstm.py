@@ -110,6 +110,49 @@ def test_cpu_calls_do_not_count_and_the_chunk_must_divide_s():
 
 
 # ---------------------------------------------------------------------------
+# the CUDA kernel's two-pass algebra (kernels/mlstm/ref.py), on the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("chunk", [16, 64, 256])
+@pytest.mark.parametrize("gates", ["paper", "extreme"])
+def test_two_pass_states_and_outputs(chunk, gates):
+    """The chunk-parallel form the kernel computes: each chunk's own
+    state, the sequential combine at the chunk starts, the outputs. Its
+    (C, n, m) at every chunk start equal the recurrence's, C and n to
+    1e-5 of their largest entry, m to 1e-5, and its h is finite. With
+    the paper's gates its h equals repro's Pallas kernel in interpret
+    mode (chunks of ``chunk``) and the recurrence within repro's 2e-4
+    and 1e-5 of max|h|; with extreme gates, at the kernel's chunk of 64,
+    the recurrence. (At chunk 16 this draw's extreme gates leave rows
+    whose |n . q| cancels to ~1e-2 of |q||k|: there every float32 form,
+    repro's Pallas kernel included, moves by more than 1e-5 of max|h|
+    with the order of its sums.) S = 500 leaves a ragged last chunk."""
+    q, k, v, log_i, log_f = _inputs(2, 500, 32, seed=chunk)
+    if gates == "extreme":
+        r = np.random.default_rng(9)
+        log_i = r.uniform(-10, 10, (2, 500)).astype(np.float32)
+        log_f = r.uniform(-31, -29, (2, 500)).astype(np.float32)
+    args = [_torch(a) for a in (q, k, v, log_i, log_f)]
+    got, (C, n, m) = ref.mlstm_two_pass_ref(*args, chunk=chunk)
+    want_C, want_n, want_m = ref.mlstm_ref_states(*args, chunk=chunk)
+    np.testing.assert_allclose(m.numpy(), want_m.numpy(), rtol=0, atol=1e-5)
+    for x, y in ((C, want_C), (n, want_n)):
+        assert float((x - y).abs().max()) <= 1e-5 * max(
+            float(y.abs().max()), 1e-30)
+    assert bool(torch.isfinite(got).all())
+    if gates == "extreme":
+        if chunk == 64:
+            _close_to(got.numpy(), ref.mlstm_ref(*args).numpy())
+        return
+    _close_to(got.numpy(), ref.mlstm_ref(*args).numpy())
+    # repro's kernel needs the chunk to divide S: its first 256 or 384 steps
+    cut = 384 if chunk != 256 else 256
+    jargs = [jnp.asarray(a[:, :cut]) for a in (q, k, v, log_i, log_f)]
+    pallas = np.asarray(jmlstm(*jargs, chunk=chunk, interpret=True))
+    _close_to(got.numpy()[:, :cut], pallas)
+
+
+# ---------------------------------------------------------------------------
 # the blocks
 # ---------------------------------------------------------------------------
 

@@ -26,11 +26,11 @@ MAIN = dict(BH=16, S=2048, hd=256, dtype="bfloat16", gates="paper")
 CASES = [
     MAIN,                                   # xlstm-350m's prefill, B=4, H=4
     {**MAIN, "dtype": "float32"},
-    {**MAIN, "S": 64},                      # one tile
+    {**MAIN, "S": 64},                      # one chunk
     {**MAIN, "BH": 1},
     {**MAIN, "hd": 64},
     {**MAIN, "BH": 4, "S": 256, "hd": 32},   # the xlstm smoke config's heads
-    {**MAIN, "S": 2000},                    # not a multiple of the tile
+    {**MAIN, "S": 2000},                    # not a multiple of the chunk
     {**MAIN, "S": 512, "gates": "extreme"},  # log_f ~ -30, log_i up to +10
 ]
 
@@ -79,6 +79,28 @@ def test_cuda_kernel_matches_plain(cuda, case):
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
     assert float((got - want).abs().max()) <= REL * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [32, 64, 256])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 128, 129, 320])
+def test_cuda_kernel_at_the_chunk_edges(cuda, S, hd, dtype):
+    """The kernel's chunks are 64 steps: one chunk, a ragged one, and
+    every pass (the chunk states, the combine over 1 to 5 chunks, the
+    outputs) at each head dim and input dtype, against the recurrence
+    and against the plain two-pass form at the kernel's chunk."""
+    case = {**MAIN, "BH": 3, "S": S, "hd": hd, "dtype": dtype}
+    args = inputs(case, cuda, seed=S * hd)
+    got = kernel.mlstm_chunkwise(*args)
+    want = ref.mlstm_ref(*args)
+    two_pass, _ = ref.mlstm_two_pass_ref(*args, chunk=64)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    peak = float(want.abs().max())
+    for other in (want, two_pass):
+        torch.testing.assert_close(got, other, rtol=TOL, atol=TOL)
+        assert float((got - other).abs().max()) <= REL * peak
 
 
 @pytest.mark.cuda

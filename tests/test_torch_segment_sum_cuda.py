@@ -195,3 +195,44 @@ def test_run_order_is_a_stable_partition(cuda, num_segments, dtype):
     assert torch.equal(got_i, want_i)
     assert torch.equal(_bits(got_v), _bits(v[perm]))
     assert torch.equal(got_m, valid[perm])
+
+
+def _minmax_case(n, num_segments, dtype, device, seed):
+    """ids scattered over [0, S), with out-of-range ids and invalid
+    lanes; every third segment left empty; floats with +-0.0 tied in
+    most segments and a NaN in a few; integers over the dtype's range."""
+    v, ids, valid = _slice_case(n, num_segments, dtype, device, seed)
+    ids = torch.where((ids >= 0) & (ids < num_segments) & (ids % 3 == 2)
+                      & (num_segments > 2), ids - 1, ids)
+    if dtype.is_floating_point:
+        g = torch.Generator(device=device).manual_seed(seed + 1)
+        r = torch.rand(n, generator=g, device=device)
+        v[r < 0.3] = 0.0
+        v[(r >= 0.3) & (r < 0.6)] = -0.0
+        v[r > 1 - 2e-5] = float("nan")
+    return v, ids, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32, torch.int64,
+                                   torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("num_segments",
+                         [4, 16, 17, 300, 4096, 4097, 20000])
+@pytest.mark.parametrize("op", ["min", "max"])
+def test_min_max_atomic_shapes_are_exact(cuda, dtype, num_segments, op):
+    """Each atomic MIN/MAX shape (registers to S = 16, shared bins to
+    4096, global atomics above), on either side of its switch points:
+    values and counts bit for bit against the plain version, signed
+    zeros, NaNs, out-of-range ids and empty segments included, and the
+    same bits on a second launch. The wrapper runs no partition."""
+    v, ids, valid = _minmax_case(200_003, num_segments, dtype, cuda,
+                                 seed=num_segments)
+    want, want_n = ref.masked_segment_reduce_ref(v, ids, valid,
+                                                 num_segments, op)
+    got, got_n = kernel.segment_reduce(v, ids, valid, num_segments, op)
+    again, _ = ops.masked_segment_reduce(v, ids, valid, num_segments, op=op)
+    assert bool((want_n == 0).any())           # empty segments are covered
+    assert torch.equal(got_n, want_n)
+    assert got.dtype == dtype
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(again), _bits(got))

@@ -64,27 +64,35 @@ def test_reads_blobs_that_repro_wrote():
 
 
 def test_bf16_table_column_is_refused():
-    """A lake ``repro`` wrote with a bfloat16 column: the port's tables
-    hold numpy arrays, which have no bfloat16 without ``ml_dtypes``, so
-    loading the table raises, naming ROADMAP, and the other columns of
-    such a lake still read."""
+    """A lake ``repro`` wrote with a bfloat16 column is no longer
+    refused: it loads without ``ml_dtypes``, the column as its bits under
+    the port's bfloat16 dtype, with the fingerprint and values ``repro``
+    gives; the store's own ``get_array`` still names ``get_tensor`` and
+    ``get_column`` for such a blob."""
     pytest.importorskip("jax")
     import jax.numpy as jnp
     from repro.core.store import MemoryStore as JaxStore
     from repro.data.tables import Table as JaxTable
+    from repro_torch.data import bfloat16
     from repro_torch.data.tables import Table
 
     jstore = JaxStore()
     f32 = np.arange(4, dtype=np.float32)
-    key = JaxTable({"x": np.asarray(jnp.asarray(f32, jnp.bfloat16)),
-                    "y": f32}).to_blobs(jstore)
+    jt = JaxTable({"x": np.asarray(jnp.asarray(f32, jnp.bfloat16)),
+                   "y": f32})
+    key = jt.to_blobs(jstore)
     store = MemoryStore()
     for k in jstore.keys():
         assert store.put(jstore.get(k)) == k
-    with pytest.raises(TypeError, match="ROADMAP"):
-        Table.from_blobs(store, key)
+    t = Table.from_blobs(store, key)
+    assert bfloat16.is_bfloat16(t.column("x").dtype)
+    assert t.fingerprint() == jt.fingerprint()
+    assert t.to_pydict() == jt.to_pydict()
+    assert t.to_blobs(store) == key
     cols = store.get_json(key)["columns"]
     assert cols["x"]["dtype"] == "bfloat16"
+    with pytest.raises(TypeError, match="get_column"):
+        store.get_array(cols["x"]["values"])
     np.testing.assert_array_equal(store.get_array(cols["y"]["values"]), f32)
     assert torch.equal(store.get_tensor(cols["x"]["values"]),
                        torch.from_numpy(f32).bfloat16())
