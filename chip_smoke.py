@@ -24,13 +24,21 @@ before the result line):
    runs, as Q18's orders lie in lineitem, and at S = 175, as in Q9;
    MIN/MAX also at S = 16, 17, 175 and 4096, the edges of the atomic
    kernels' three shapes. A row times the wrapper and the kernel alone
-   (a float SUM apart its two steps: the run-order partition and the
-   reduction kernel). The probe
-   kernels at n = 6,001,215 and n = 1,500,000 lanes into a table of
-   T = 2^23 slots, with out-of-range lanes (negative, >= T, the int32
-   sentinel), empty slots, duplicate keys and masked lanes, bit for bit;
-   and n = 0, T = 0. Times of the kernel, the plain version and one
-   PyTorch library call, and the bound;
+   with CUDA events over back-to-back calls (``ms``, ``kernel_only_ms``;
+   a float SUM apart its two steps: the run-order partition and the
+   reduction kernel), and gives ``device_ms``, the card's own time in
+   the source's kernels during the alone call, from ``torch.profiler``
+   (the events time the host's launch rate when a call takes longer to
+   launch than to run; a row whose kernels show no device time fails).
+   The probe kernels at n = 6,001,215 (keys clustered and in random
+   order) and n = 1,500,000 lanes into a table of T = 2^23 slots, with
+   out-of-range lanes (negative, >= T, the int32 sentinel), empty
+   slots, duplicate keys and masked lanes, bit for bit, each
+   ``device_ms`` at most its library call's time; and n = 0, T = 0, and
+   the 16-byte body's edges
+   (n of 1-5 and 4k + 1 to 4k + 3, misaligned views of slots, mask and
+   table, masks all false and all true). Times of the kernel, the plain
+   version and one PyTorch library call, and the bound;
 4. slice: TPC-H SF ``--sf`` generated from ``--seed``, run through
    ``Client.run`` on the default backend (``torch_auto`` on ``cuda``);
    both segment kernels and ``hash_probe`` (Q18's outer join) must have
@@ -149,9 +157,7 @@ SOURCES = {
     "mlstm_chunkwise":
         "src/repro_torch/kernels/mlstm/csrc/mlstm_chunkwise.cu",
 }
-PROBE_SLOTS = 1 << 23           # the SF1 orderkey span, to a power of two
 Q18_JOIN_LANES = 1_500_000      # Q18's outer join probes one lane per order
-INT32_MAX = 2**31 - 1           # the partitioned join's sentinel
 # peak rates of one H100 SXM (NVIDIA's data sheet, dense): bf16 on the
 # tensor cores, float32 on the FMA units (the flash kernel's float32 path)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -178,6 +184,8 @@ XLSTM = "xlstm_350m"
 XLSTM_BATCH, XLSTM_LEN = 4, 2048   # the xLSTM paper's training context
 XLSTM_LONG_PROMPT = 1024           # four of repro's 256-token chunks
 XLSTM_PREFILL = f"xlstm_prefill_{XLSTM_BATCH}x{XLSTM_LEN}"
+MLSTM_STATE_CHUNK = 64   # the CUDA kernel's chunk: one chunk skips the
+                         # state launch
 # The mLSTM kernel (chunkwise form, float32) against its plain version
 # (the sequential recurrence, float32), as torch.allclose's (rtol, atol):
 # repro's own tolerance for the two forms (tests/test_kernels.py). Inputs
@@ -224,6 +232,34 @@ def cuda_ms(torch, fn, reps: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_cols(fn, name: str, launches: int) -> dict:
+    """``device_ms``, the device time per call of ``fn`` in the kernels
+    of ``name``'s source, by name, from torch.profiler over 5 calls, and
+    what goes with it (``obs.device_time.device_ms``). ``launches`` is
+    the number of the source's kernels one call launches: a traced
+    window that shows another count is traced again, and the row fails
+    when none shows it, as when the profiler shows no device time."""
+    from repro_torch.obs.device_time import device_ms
+    cols = device_ms(fn, os.path.join(ROOT, SOURCES[name]),
+                     launches=launches)
+    expect(cols["device_launches"] == launches, name, "device launches",
+           cols, launches)
+    return cols
+
+
+def segment_launches(op: str, dtype) -> int:
+    """The kernels of ``segment_sum.cu`` that one alone call launches: an
+    integer SUM its atomic kernel, and a truncation to values narrower
+    than 4 bytes; a float SUM's reduction three (init, tiles, carries);
+    MIN/MAX the atomic kernel and the finish."""
+    from repro_torch.kernels.segment_sum.kernel import INT_DTYPES
+    if op != "sum":
+        return 2
+    if dtype in INT_DTYPES:
+        return 1 if dtype.itemsize >= 4 else 2
+    return 3
 
 
 # ---------------------------------------------------------------------------
@@ -344,6 +380,9 @@ def check_config(torch, kernel, ops, ref, op, dtype, num_segments, kind,
         **({} if partition is None
            else {"partition_ms": cuda_ms(torch, partition)}),
         "kernel_only_ms": cuda_ms(torch, alone),
+        **device_cols(alone, "masked_segment_sum" if op == "sum"
+                      else "masked_segment_reduce",
+                      segment_launches(op, dtype)),
         "plain_ms": cuda_ms(torch, plain, reps=3),
         "library_ms": None if lib is None else cuda_ms(torch, lib, reps=3),
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
@@ -416,50 +455,16 @@ def h2d_ms(torch, np) -> float:
 # phase 3, continued: the probe kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def probe_inputs(torch, n: int, order: str, g):
-    """A direct-address table as the partitioned join builds it, from
-    1.5M build keys over PROBE_SLOTS slots (a tenth of them repeated, so
-    some slots hold duplicates and most stay empty), and n probe lanes:
-    hits (ascending when ``order`` is "clustered", as l_orderkey probes
-    orders; shuffled when "random"), 10% on random slots (mostly empty),
-    1% each negative, >= T and the int32 sentinel; a mask keeping half
-    the lanes."""
-    dev = DEVICE
-    t = PROBE_SLOTS
-    m = Q18_GROUPS
-    keys = torch.randint(0, t, (m,), generator=g, device=dev,
-                         dtype=torch.int32)
-    dup = torch.rand(m, generator=g, device=dev) < 0.1
-    keys[dup] = keys.roll(1)[dup]
-    counts = torch.bincount(keys.long(), minlength=t).to(torch.int32)
-    srt, _ = torch.sort(keys)
-    starts = torch.full((t,), m, dtype=torch.int32, device=dev)
-    starts.scatter_reduce_(0, srt.long(),
-                           torch.arange(m, dtype=torch.int32, device=dev),
-                           reduce="amin")
-    pick = torch.randint(0, m, (n,), generator=g, device=dev)
-    if order == "clustered":
-        pick, _ = torch.sort(pick)
-    slots = srt[pick]
-    r = torch.rand(n, generator=g, device=dev)
-    spots = torch.randint(0, t, (n,), generator=g, device=dev,
-                          dtype=torch.int32)
-    slots = torch.where(r < 0.10, spots, slots)
-    slots = torch.where((r >= 0.10) & (r < 0.11), -1 - spots, slots)
-    slots = torch.where((r >= 0.11) & (r < 0.12), t + spots, slots)
-    slots = torch.where((r >= 0.12) & (r < 0.13),
-                        torch.full_like(slots, INT32_MAX), slots)
-    mask = torch.rand(n, generator=g, device=dev) < 0.5
-    return starts, counts, slots.contiguous(), mask
-
-
 def check_probe(torch, kernel, ops, ref, masked: bool, n: int, order: str,
                 g):
     """One probe case: bit-for-bit parity, the lanes it must cover, and
     times."""
+    from repro_torch.kernels.hash_join.inputs import (INT32_MAX,
+                                                      PROBE_SLOTS,
+                                                      probe_inputs)
     name = "masked_hash_probe" if masked else "hash_probe"
     log(f"kernel check: {name} n={n} T={PROBE_SLOTS} {order}")
-    ts, tc, slots, mask = probe_inputs(torch, n, order, g)
+    ts, tc, slots, mask = probe_inputs(n, order, g, device=DEVICE)
     if masked:
         call = lambda: ops.masked_hash_probe(ts, tc, slots, mask)
         alone = lambda: kernel.masked_hash_probe(ts, tc, slots, mask)
@@ -494,43 +499,80 @@ def check_probe(torch, kernel, ops, ref, masked: bool, n: int, order: str,
     reads = int(mask.sum()) if masked else n
     touched = int(torch.unique(slots[live]).numel())
     nbytes = 8 * n + 4 * reads + (n if masked else 0) + 8 * touched
-    return {
+    row = {
         "op": name, "n": n, "T": PROBE_SLOTS, "order": order,
         "max_abs_err": err, "ms": cuda_ms(torch, call),
         "kernel_only_ms": cuda_ms(torch, alone),
+        **device_cols(alone, name, 1),
         "plain_ms": cuda_ms(torch, plain, reps=3),
         "library_ms": cuda_ms(torch, library, reps=3),
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "bound_bytes": nbytes,
     }
+    expect(row["device_ms"] <= row["library_ms"], name, n, order,
+           "device_ms above the library call's time", row)
+    return row
+
+
+PROBE_EDGE_LANES = (1, 2, 3, 4, 5, 4001, 4002, 4003, 4004)
 
 
 def probe_edges(torch, ops, ref) -> None:
-    """n = 0 lanes, and a table of T = 0 slots, on the card."""
+    """On the card, bit for bit against the plain version: n = 0 lanes, a
+    table of T = 0 slots, and the 16-byte body's edges: n of 1-5 and 4k +
+    1 to 4k + 3, slots, mask and table as views at an element offset of
+    1 (and the slots and mask both at 1 and at 3), and masks all false
+    and all true."""
+    from repro_torch.kernels.hash_join.inputs import INT32_MAX
     dev = DEVICE
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
     empty = torch.zeros(0, dtype=torch.int32, device=dev)
     table = torch.arange(8, dtype=torch.int32, device=dev)
     slots = torch.tensor([-1, 0, 7, 8, INT32_MAX], dtype=torch.int32,
                          device=dev)
     keep = torch.tensor([True, False, True, True, True], device=dev)
     cases = [
-        ("n=0", lambda f: f(table, table, empty)),
-        ("T=0", lambda f: f(empty, empty, slots)),
-        ("T=8", lambda f: f(table, table + 1, slots)),
+        ("n=0", table, table, empty, keep[:0]),
+        ("T=0", empty, empty, slots, keep),
+        ("T=8", table, table + 1, slots, keep),
     ]
-    for label, run in cases:
-        for got, want in ((run(ops.hash_probe), run(ref.hash_probe_ref)),
-                          (run(lambda a, b, c: ops.masked_hash_probe(
-                              a, b, c, keep[:len(c)])),
-                           run(lambda a, b, c: ref.masked_hash_probe_ref(
-                               a, b, c, keep[:len(c)])))):
+    T = 3000
+    ts = torch.randint(0, 10**6, (T + 1,), generator=g, device=dev,
+                       dtype=torch.int32)
+    tc = torch.randint(0, 4, (T + 1,), generator=g, device=dev,
+                       dtype=torch.int32)
+    for n in PROBE_EDGE_LANES:
+        s = torch.randint(-50, T + 50, (n + 3,), generator=g, device=dev,
+                          dtype=torch.int32)
+        s[::7] = INT32_MAX
+        m = torch.rand(n + 3, generator=g, device=dev) < 0.5
+        cases += [(f"n={n}", ts[:T], tc[:T], s[:n], m[:n]),
+                  (f"n={n} slots[1:]", ts[:T], tc[:T], s[1:n + 1], m[:n]),
+                  (f"n={n} mask[1:]", ts[:T], tc[:T], s[:n], m[1:n + 1]),
+                  (f"n={n} slots[1:] mask[1:]", ts[:T], tc[:T], s[1:n + 1],
+                   m[1:n + 1]),
+                  (f"n={n} slots[3:] mask[3:]", ts[:T], tc[:T], s[3:n + 3],
+                   m[3:n + 3]),
+                  (f"n={n} table[1:]", ts[1:], tc[1:], s[:n], m[:n]),
+                  (f"n={n} mask all false", ts[:T], tc[:T], s[:n],
+                   torch.zeros_like(m[:n])),
+                  (f"n={n} mask all true", ts[:T], tc[:T], s[:n],
+                   torch.ones_like(m[:n]))]
+    for label, a, b, c, m in cases:
+        for got, want in ((ops.hash_probe(a, b, c),
+                           ref.hash_probe_ref(a, b, c)),
+                          (ops.masked_hash_probe(a, b, c, m),
+                           ref.masked_hash_probe_ref(a, b, c, m))):
             torch.cuda.synchronize()
             expect(all(torch.equal(x, y) for x, y in zip(got, want)),
                    "probe edge case", label, got, want)
-    log("kernel check: probe edge cases n=0, T=0 and T=8 match")
+    log(f"kernel check: {len(cases)} probe edge cases match (n=0, T=0, "
+        f"T=8; n in {PROBE_EDGE_LANES}, misaligned views, masks all "
+        f"false and all true)")
 
 
-def phase_probe_kernels(torch):
+def phase_probe_kernels(torch, ptxas: dict):
     from repro_torch.kernels.hash_join import kernel, ops, ref
     g = torch.Generator(device=DEVICE)
     g.manual_seed(1)
@@ -539,7 +581,10 @@ def phase_probe_kernels(torch):
     for n, order in ((N_ROWS, "clustered"), (N_ROWS, "random"),
                      (Q18_JOIN_LANES, "clustered")):
         for masked in (False, True):
-            row = check_probe(torch, kernel, ops, ref, masked, n, order, g)
+            row = {**check_probe(torch, kernel, ops, ref, masked, n, order,
+                                 g),
+                   **ptxas_of(ptxas, "hash_probe",
+                              f"probe_kernelILb{int(masked)}E")}
             rows.append(row)
             log("kernel " + json.dumps(row))
     return rows
@@ -886,6 +931,7 @@ def flash_case(torch, case: dict, g):
         "library_err": float((lib.float() - plain().float()).abs().max()),
         "ms": cuda_ms(torch, call, reps=5),
         "kernel_only_ms": cuda_ms(torch, alone, reps=5),
+        **device_cols(alone, "flash_attention", 1),
         "plain_ms": cuda_ms(torch, plain, reps=2),
         "library_ms": cuda_ms(torch, library, reps=5),
         "bound_ms": max(t_ops, t_bytes),
@@ -914,6 +960,7 @@ def rglru_case(torch, case: dict, g):
     return {
         "op": "rglru_scan", **case, "max_abs_err": 0.0,
         "ms": cuda_ms(torch, call), "kernel_only_ms": cuda_ms(torch, alone),
+        **device_cols(alone, "rglru_scan", 1),
         "plain_ms": cuda_ms(torch, plain, reps=2), "library_ms": None,
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "bytes": nbytes,
@@ -1368,6 +1415,8 @@ def mlstm_case(torch, case: dict, g):
         "rel_err": err / peak, "max_abs_h": peak, **control,
         "ms": cuda_ms(torch, call, reps=5),
         "kernel_only_ms": cuda_ms(torch, alone, reps=5),
+        **device_cols(alone, "mlstm_chunkwise",
+                      3 if case["S"] > MLSTM_STATE_CHUNK else 2),
         "plain_ms": cuda_ms(torch, plain, reps=2), "library_ms": None,
         **mlstm_bound(case, args[0].element_size()),
     }
@@ -1517,7 +1566,7 @@ def main() -> int:
 
     # 3. kernels
     rows = phase_kernels(torch)
-    probe_rows = phase_probe_kernels(torch)
+    probe_rows = phase_probe_kernels(torch, ptxas)
     copy_ms = h2d_ms(torch, np)
     log(f"h2d copy of one column set (float64 + int32 ids + bool, "
         f"{N_ROWS} rows, pageable): {copy_ms:.3f} ms")
@@ -1558,6 +1607,7 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             "kernel_only_ms": row["kernel_only_ms"],
+            "device_ms": row["device_ms"],
             "shape": f"n={N_ROWS} S={s} {dt} {op}",
             "h2d_ms": copy_ms,
         })
@@ -1575,7 +1625,9 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             "kernel_only_ms": row["kernel_only_ms"],
-            "shape": f"n={N_ROWS} T={PROBE_SLOTS} clustered",
+            "device_ms": row["device_ms"],
+            "shape": f"n={N_ROWS} T={row['T']} clustered",
+            "registers": row["registers"], "spill_bytes": row["spill_bytes"],
         })
 
     # 6. the model stack
@@ -1621,6 +1673,7 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             "kernel_only_ms": row["kernel_only_ms"],
+            "device_ms": row["device_ms"],
             "shape": json.dumps(main_case), "registers": row["registers"],
             "spill_bytes": row["spill_bytes"],
             **({"kernel": row["kernel"]} if "kernel" in row else {}),

@@ -121,6 +121,141 @@ def test_sentinel_and_int32_extremes_miss():
                 np.array([0, 0, 0, 0, 1, 1], np.int32)))
 
 
+# The CUDA kernel takes 4 lanes at a time in 16-byte loads where the
+# slots, mask and outputs align, and a scalar head and tail elsewhere; the
+# plain versions must agree with repro's Pallas kernels on the inputs that
+# split treats specially.
+EDGE_CASES = {   # label -> (n, slots view offset, mask view offset, order,
+    #                          mask: "random" or "none")
+    "n=4k+1": (1001, 0, 0, "random", "random"),
+    "n=4k+2": (1002, 0, 0, "random", "random"),
+    "n=4k+3": (1003, 0, 0, "random", "random"),
+    "slots[1:] mask[1:]": (1001, 1, 1, "random", "random"),
+    "slots[3:] mask[1:]": (1002, 3, 1, "random", "random"),
+    "clustered, then shuffled": (1003, 0, 0, "shuffled", "random"),
+    "all masked": (1002, 0, 0, "random", "none"),
+}
+
+
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_plain_probes_match_pallas_on_vector_edges(case):
+    n, s_off, m_off, order, kind = EDGE_CASES[case]
+    t = 700
+    (ts, tc), _ = _table(t, seed=n + s_off)
+    slots, mask = _slots(n + 3, t, seed=n + m_off)
+    if order == "shuffled":
+        slots = np.random.default_rng(n).permutation(np.sort(slots))
+    if kind == "none":
+        mask[:] = False
+    sv = torch.from_numpy(slots)[s_off:s_off + n]     # views, not copies
+    mv = torch.from_numpy(mask)[m_off:m_off + n]
+    assert sv.storage_offset() == s_off and mv.storage_offset() == m_off
+    tt = (torch.from_numpy(ts), torch.from_numpy(tc))
+    got = tuple(o.numpy() for o in ops.hash_probe(*tt, sv))
+    got_m = tuple(o.numpy() for o in ops.masked_hash_probe(*tt, sv, mv))
+    j = (jnp.asarray(ts), jnp.asarray(tc), jnp.asarray(sv.numpy()))
+    _same(got, hash_probe_kernel(*j, interpret=True))
+    _same(got_m, masked_hash_probe_kernel(*j, jnp.asarray(mv.numpy()),
+                                          interpret=True))
+    if kind == "none":
+        assert not got_m[0].any() and not got_m[1].any()
+
+
+@pytest.mark.parametrize("order", ["clustered", "random"])
+def test_probe_inputs_hold_a_join_table_and_every_lane_kind(order):
+    """``inputs.probe_inputs`` (the inputs ``chip_smoke.py`` checks the
+    card's probes on), at a small size on the CPU: the table is the
+    direct-address table of its build keys, the lanes hold hits, empty
+    slots, negative, >= T and sentinel lanes (hits ascending when
+    clustered), and the port's plain probes on them match ``repro``'s
+    Pallas kernels in interpret mode."""
+    from repro_torch.kernels.hash_join import inputs
+    g = torch.Generator().manual_seed(3)
+    t, m, n = 4096, 800, 3001
+    ts, tc, slots, mask = inputs.probe_inputs(n, order, g, slots=t, keys=m,
+                                              device="cpu")
+    assert slots.dtype == ts.dtype == tc.dtype == torch.int32
+    assert slots.shape == mask.shape == (n,) and ts.shape == (t,)
+    assert int(tc.sum()) == m and bool((tc > 1).any())
+    hit = tc > 0
+    assert bool((ts[~hit] == m).all())       # an empty slot keeps start = m
+    starts = ts[hit]                          # in slot order
+    assert int(starts[0]) == 0 and int(starts[-1] + tc[hit][-1]) == m
+    assert bool((starts[1:] == (starts + tc[hit])[:-1]).all())
+    inr = (slots >= 0) & (slots < t)
+    assert bool((slots < 0).any()) and bool((slots >= t).any())
+    assert bool((slots == inputs.INT32_MAX).any())
+    assert bool((tc[slots[inr].long()] == 0).any())
+    # clustered: ascending but for the 13% of lanes drawn apart
+    rising = float((slots[1:] >= slots[:-1]).double().mean())
+    assert rising > 0.75 if order == "clustered" else rising < 0.6
+    args = [x.numpy() for x in (ts, tc, slots)]
+    j = tuple(jnp.asarray(a) for a in args)
+    _same(_port(ops.hash_probe, *args), hash_probe_kernel(*j,
+                                                          interpret=True))
+    _same(_port(ops.masked_hash_probe, *args, mask.numpy()),
+          masked_hash_probe_kernel(*j, jnp.asarray(mask.numpy()),
+                                   interpret=True))
+
+
+def _split_lanes(n, slots_ptr, mask_ptr, starts_ptr, counts_ptr):
+    """The lanes of each path of the kernel, from kernel.lane_split."""
+    head, groups = kernel.lane_split(n, slots_ptr, mask_ptr, starts_ptr,
+                                     counts_ptr)
+    body_end = head + 4 * groups
+    return head, groups, (list(range(head)) + list(range(body_end, n)),
+                          list(range(head, body_end)))
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 4, 5, 7, 8, 9, 4001, 4002,
+                               4003, 4004])
+def test_lane_split_covers_every_lane_once(n):
+    """Every lane is in exactly one of the scalar head, the 16-byte body
+    and the scalar tail; the body's first lane aligns slots, starts and
+    counts to 16 bytes and the mask to 4; head and tail are under 4 lanes
+    whenever one lane aligns them all."""
+    base = 1 << 20
+    for s_phase in range(4):
+        for m_off in (None, 0, 1, 2, 3):
+            for o_phase in (s_phase, 0):
+                sp = base + 4 * s_phase
+                mp = None if m_off is None else base + m_off
+                op = base + 4 * o_phase
+                head, groups, (scalar, body) = _split_lanes(n, sp, mp, op,
+                                                            op + 64)
+                assert sorted(scalar + body) == list(range(n))
+                assert len(body) == 4 * groups
+                if groups:
+                    assert (sp + 4 * head) % 16 == 0
+                    assert (op + 4 * head) % 16 == 0
+                    assert mp is None or (mp + head) % 4 == 0
+                    assert head < 4 and n - head - 4 * groups < 4
+                aligned = (o_phase == s_phase and (
+                    mp is None or (m_off - s_phase) % 4 == 0))
+                if aligned and n >= head + 4:
+                    assert groups == (n - head) // 4 > 0
+
+
+def test_lane_split_refuses_unaligned_int32():
+    assert kernel.lane_split(40, (1 << 20) + 2, None, 1 << 20,
+                             1 << 21) == (40, 0)
+
+
+@pytest.mark.parametrize("phase", range(4))
+def test_outputs_take_the_slots_phase(phase):
+    """The outputs are allocated at the slots' 16-byte phase, so a view of
+    the slots at any offset keeps the 16-byte body."""
+    slots = torch.zeros(64, dtype=torch.int32)[phase:phase + 50]
+    sp = slots.data_ptr()
+    assert sp % 16 == 4 * phase          # the CPU allocator aligns to 64
+    out = kernel._empty_at_phase(slots)
+    assert out.shape == (50,) and out.dtype == torch.int32
+    assert out.is_contiguous() and out.data_ptr() % 16 == 4 * phase
+    head, groups = kernel.lane_split(50, sp, None, out.data_ptr(),
+                                     out.data_ptr())
+    assert head == (4 - phase) % 4 and groups == (50 - head) // 4
+
+
 # ---------------------------------------------------------------------------
 # the numpy floor against repro's
 # ---------------------------------------------------------------------------

@@ -71,3 +71,47 @@ def test_cuda_kernel_matches_plain(cuda, masked, n, t):
     assert after == before + 1
     for g, w in zip(got, want):
         assert g.dtype == torch.int32 and torch.equal(g.cpu(), w)
+
+
+# The kernel's 16-byte body takes groups of 4 lanes where slots, outputs
+# (16 bytes) and mask (4 bytes) align; a scalar head and tail take the
+# rest, and every lane when the mask's phase differs from the slots'.
+VECTOR_CASES = {   # label -> (n, slots view offset, mask offset, table
+    #                           offset, mask: "half", "none" or "all")
+    "n%4=0": (4000, 0, 0, 0, "half"),
+    "n%4=1": (4001, 0, 0, 0, "half"),
+    "n%4=2": (4002, 0, 0, 0, "half"),
+    "n%4=3": (4003, 0, 0, 0, "half"),
+    "n=1": (1, 0, 0, 0, "half"),
+    "n=5": (5, 0, 0, 0, "half"),
+    "slots[1:]": (4001, 1, 0, 0, "half"),
+    "mask[1:]": (4002, 0, 1, 0, "half"),
+    "slots[1:] mask[1:]": (4003, 1, 1, 0, "half"),
+    "slots[3:] mask[3:]": (4000, 3, 3, 0, "half"),
+    "table[1:]": (4001, 0, 0, 1, "half"),
+    "mask all false": (4003, 0, 0, 0, "none"),
+    "mask all true": (4002, 0, 0, 0, "all"),
+    "n above 2^22": (2**22 + 3, 0, 0, 0, "half"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(VECTOR_CASES))
+def test_cuda_vector_body_edges_match_plain(cuda, case):
+    n, s_off, m_off, t_off, kind = VECTOR_CASES[case]
+    t = 3000
+    ts, tc = _table(t + t_off, seed=n)
+    slots, mask = _slots(n + 3, t, seed=n + s_off)
+    if kind != "half":
+        mask[:] = kind == "all"
+    ts_d, tc_d = (torch.from_numpy(a).to(cuda)[t_off:] for a in (ts, tc))
+    slots_d = torch.from_numpy(slots).to(cuda)[s_off:s_off + n]
+    mask_d = torch.from_numpy(mask).to(cuda)[m_off:m_off + n]
+    got = (ops.hash_probe(ts_d, tc_d, slots_d),
+           ops.masked_hash_probe(ts_d, tc_d, slots_d, mask_d))
+    torch.cuda.synchronize()
+    args = [x.cpu() for x in (ts_d, tc_d, slots_d, mask_d)]
+    want = (ref.hash_probe_ref(*args[:3]), ref.masked_hash_probe_ref(*args))
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert a.dtype == torch.int32 and torch.equal(a.cpu(), b)
