@@ -55,6 +55,33 @@ before the result line):
    EXPLAIN must show the fusion, and each result must equal the query on
    ``vectorized``, the unoptimized plan and a ``cache=False`` rerun
    (fingerprints); at SF 0.01 the ``reference`` backend must match;
+5b. partial aggregation over a list of cards, and the paper's example,
+   on the same catalog: (a) Q18's ``order_lines`` aggregate (6,001,215
+   rows, int64 key ``l_orderkey``, int64 SUM and COUNT, float64 MIN and
+   MAX) through ``PartitionedBackend(device="cuda").group_by_agg`` (every
+   visible card), bit for bit against ``vectorized``, with both segment
+   kernels launched, and the wall times of ``partitioned``, ``torch``
+   and ``vectorized`` for the same call; (b) the same over four
+   partitions through the multi-card code (``devices=["cuda:0"] * 4``);
+   (c) ``partitioned`` registered over those four, the TPC-H pipeline
+   planned with its row counts and optimized: ``order_lines`` carries
+   the ``partial_agg`` rewrite, runs as partials through ``Client.run``
+   on ``torch_auto``, and its tables equal ``vectorized``'s and phase
+   4's unoptimized run, and a ``cache=False`` rerun's fingerprints; the
+   one-card factory is registered again after; (d) phase 5's two join
+   queries on the four partitions (probe and GROUP BY), each equal to
+   ``vectorized``; (e) the paper's running example
+   (``configs/paper_pipeline.py``, with the Appendix-A node) after
+   ``seed_lake`` through ``Client.run`` on the default backend, at its
+   5 rows and at 1,000,000 (the parent's GROUP BY on the card):
+   committed, no NULL in ``family_friend.col5``, and the fingerprints
+   of ``vectorized``. Every segment kernel call of the partial path in
+   (a)-(d), each partition's reduction (n = 6,001,215 rows into S =
+   8,388,608 slots on one card) and each owner's combine (4 x 2^21
+   partial lanes into 2^21 slots), is held against its plain version on
+   the same card tensors, as in phase 3; the heaviest call of each
+   kernel is timed again as phase 3's rows are, and gives the
+   ``kernels`` line its shape, times and bound;
 6. the model stack, recurrentgemma-9b (arXiv:2402.19427 as
    ``repro_torch/configs/recurrentgemma_9b.py`` configures it: 38 layers,
    d_model 4096, 16 heads, one kv head, head dim 256, window 2048):
@@ -110,6 +137,7 @@ kernels' numbers, then ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -304,11 +332,57 @@ def bits(torch, t):
 
 def check_config(torch, kernel, ops, ref, op, dtype, num_segments, kind,
                  g):
-    """One (op, dtype, S) case: parity, repeatability and times."""
-    from repro_torch.kernels.segment_sum.kernel import INT_DTYPES
+    """One (op, dtype, S) case on generated inputs (``check_case``)."""
     log(f"kernel check: {op} {str(dtype).split('.')[1]} S={num_segments} "
         f"{kind}")
     v, ids, valid = make_inputs(torch, dtype, num_segments, kind, g)
+    return check_case(torch, kernel, ops, ref, op, v, ids, valid,
+                      num_segments, kind)
+
+
+def parity(torch, ref, op, v, ids, valid, num_segments, got, got_n,
+           label: str) -> float:
+    """A wrapper's output against its plain version on the same inputs:
+    counts, integers and MIN/MAX bit for bit, a float SUM within
+    ``SUM_RTOL`` of its segment's mass. Returns the float SUM's largest
+    error (0 otherwise)."""
+    dtype = v.dtype
+    if op == "sum":
+        want, want_n = ref.masked_segment_sum_ref(v, ids, valid,
+                                                  num_segments)
+    else:
+        want, want_n = ref.masked_segment_reduce_ref(v, ids, valid,
+                                                     num_segments, op)
+    expect(torch.equal(got_n, want_n), label, "counts")
+    expect(got.dtype == dtype and got.shape == (num_segments,), label,
+           "output", got.dtype, got.shape)
+    if op == "sum" and dtype.is_floating_point:
+        mass, _ = ref.masked_segment_sum_ref(v.abs(), ids, valid,
+                                             num_segments)
+        diff = (got.double() - want.double()).abs()
+        tol = SUM_RTOL[str(dtype).split(".")[1]] * mass.double()
+        bad = int((diff > tol).sum())
+        expect(bad == 0, label, f"{bad} sums off")
+        return float(diff.max()) if len(diff) else 0.0
+    expect(torch.equal(bits(torch, got), bits(torch, want)), label,
+           "values differ")
+    return 0.0
+
+
+def segment_bound_ms(n: int, num_segments: int, item: int) -> float:
+    """Each input read once (values, int32 ids, bool valid), each output
+    written once (values, int32 counts), at the card's memory rate."""
+    nbytes = n * (item + 4 + 1) + num_segments * (item + 4)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def check_case(torch, kernel, ops, ref, op, v, ids, valid, num_segments,
+               kind: str) -> dict:
+    """One case on the card: parity with the plain version,
+    repeatability, and times."""
+    from repro_torch.kernels.segment_sum.kernel import INT_DTYPES
+    dtype = v.dtype
+    label = f"{op} {dtype} S={num_segments} {kind}"
     if op == "sum":
         call = lambda: ops.masked_segment_sum(v, ids, valid, num_segments)
         plain = lambda: ref.masked_segment_sum_ref(v, ids, valid,
@@ -320,25 +394,11 @@ def check_config(torch, kernel, ops, ref, op, dtype, num_segments, kind,
                                                       num_segments, op)
     got, got_n = call()
     again, _ = call()
-    want, want_n = plain()
     torch.cuda.synchronize()
-    expect(torch.equal(got_n, want_n), op, dtype, num_segments, "counts")
     expect(torch.equal(bits(torch, got), bits(torch, again)),
-           op, dtype, num_segments, "not bitwise repeatable")
-    expect(got.dtype == dtype and got.shape == (num_segments,), op, dtype,
-           "output", got.dtype, got.shape)
-    err = 0.0
-    if op == "sum" and dtype.is_floating_point:
-        mass, _ = ref.masked_segment_sum_ref(v.abs(), ids, valid,
-                                             num_segments)
-        diff = (got.double() - want.double()).abs()
-        tol = SUM_RTOL[str(dtype).split(".")[1]] * mass.double()
-        bad = int((diff > tol).sum())
-        expect(bad == 0, op, dtype, num_segments, f"{bad} sums off")
-        err = float(diff.max()) if len(diff) else 0.0
-    else:
-        expect(torch.equal(bits(torch, got), bits(torch, want)),
-               op, dtype, num_segments, kind, "values differ")
+           label, "not bitwise repeatable")
+    err = parity(torch, ref, op, v, ids, valid, num_segments, got, got_n,
+                 label)
 
     # times: the wrapper, the kernel alone (a float SUM's two steps
     # apart: the run-order partition, then the reduction kernel on its
@@ -372,11 +432,11 @@ def check_config(torch, kernel, ops, ref, op, dtype, num_segments, kind,
             0, safe, vm, reduce=red)
     if dtype.itemsize < 4:
         lib = None      # 1- and 2-byte atomics serialize on shared words
-    item = v.element_size()
-    nbytes = N_ROWS * (item + 4 + 1) + num_segments * (item + 4)
+    n = v.numel()
     return {
         "op": op, "dtype": str(dtype).split(".")[1], "S": num_segments,
-        "kind": kind, "max_abs_err": err, "ms": cuda_ms(torch, call),
+        "n": n, "kind": kind, "max_abs_err": err,
+        "ms": cuda_ms(torch, call),
         **({} if partition is None
            else {"partition_ms": cuda_ms(torch, partition)}),
         "kernel_only_ms": cuda_ms(torch, alone),
@@ -385,7 +445,8 @@ def check_config(torch, kernel, ops, ref, op, dtype, num_segments, kind,
                       segment_launches(op, dtype)),
         "plain_ms": cuda_ms(torch, plain, reps=3),
         "library_ms": None if lib is None else cuda_ms(torch, lib, reps=3),
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "bound_ms": segment_bound_ms(n, num_segments, v.element_size()),
+        "bound_by": "bytes",
     }
 
 
@@ -598,7 +659,9 @@ FLOAT_AGGS = {"sum_base_price", "sum_disc_price", "sum_charge", "avg_qty",
               "avg_price", "avg_disc"}
 
 
-def run_pipeline(data, backend=None, *, cache=True):
+def run_pipeline(data, backend=None, *, cache=True, plan_=None):
+    """The TPC-H pipeline through ``Client.run`` (``plan_``, or the plan
+    of ``build_pipeline()``): published tables, runtime, wall seconds."""
     import torch
     from repro_torch.core.planner import plan
     from repro_torch.core.runner import Client
@@ -608,7 +671,7 @@ def run_pipeline(data, backend=None, *, cache=True):
     client = Client()
     for name, cols in data.items():
         client.write_source_table("main", name, Table(cols))
-    pl = plan(build_pipeline())
+    pl = plan(build_pipeline()) if plan_ is None else plan_
     t0 = time.perf_counter()
     if backend is None:
         result = run_slice(client, pl, cache=cache)
@@ -702,7 +765,7 @@ def phase_slice(torch, np, data, seed: int):
     log("slice sf0.01: torch_auto matches vectorized and reference")
     for name, t in sorted(tables.items()):
         log(f"slice table {name}: rows={len(t)} fp={t.fingerprint()}")
-    return launches
+    return launches, tables
 
 
 # ---------------------------------------------------------------------------
@@ -810,6 +873,289 @@ def phase_queries(torch, np, data, seed: int):
                         QUERY_FLOATS)
     log("query sf0.01: torch_auto and partitioned match reference")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: partial aggregation over a list of cards, the paper's example
+# ---------------------------------------------------------------------------
+
+# Q18's order_lines aggregate (examples/tpch.py): one int64 key, int64
+# SUM and COUNT, float64 MIN and MAX
+ORDER_LINES = ("l_orderkey", (("sum", "l_quantity", "sum_qty"),
+                              ("count", "l_quantity", "n_lines"),
+                              ("min", "l_extendedprice", "min_price"),
+                              ("max", "l_extendedprice", "max_price")))
+FOUR_CARDS = ["cuda:0"] * 4     # four partitions through the multi-card
+                                # code, every one on the one card
+PAPER_ROWS = 1_000_000          # the paper's example at a size that
+                                # takes torch_auto's card row
+
+
+def same_columns(np, got, want, label: str) -> None:
+    """Two group-by results bit for bit (``assert_same``, no float
+    tolerance)."""
+    from repro_torch.data.tables import Table
+    assert_same(np, {"q": Table._from_cols(got)},
+                {"q": Table._from_cols(want)}, label, floats=())
+
+
+@contextlib.contextmanager
+def segment_calls(calls: list):
+    """Records the inputs and outputs, on the card, of every segment
+    kernel call the partial path makes (``exec/partitioned.py``'s
+    ``_reduce`` and ``_combine``), for ``check_calls``. Each call still
+    goes through the wrapper, which counts its launch as before."""
+    from repro_torch.exec import partitioned as part
+    seg_sum, seg_reduce = part.masked_segment_sum, part.masked_segment_reduce
+
+    def rec_sum(values, ids, valid, num_segments):
+        out = seg_sum(values, ids, valid, num_segments)
+        calls.append(("sum", values, ids, valid, num_segments, out))
+        return out
+
+    def rec_reduce(values, ids, valid, num_segments, *, op):
+        out = seg_reduce(values, ids, valid, num_segments, op=op)
+        calls.append((op, values, ids, valid, num_segments, out))
+        return out
+
+    part.masked_segment_sum = rec_sum
+    part.masked_segment_reduce = rec_reduce
+    try:
+        yield calls
+    finally:
+        part.masked_segment_sum = seg_sum
+        part.masked_segment_reduce = seg_reduce
+
+
+def check_calls(torch, calls: list, label: str, heaviest: dict) -> None:
+    """Every recorded call against its plain version on the same card
+    tensors (``parity``); ``heaviest`` keeps, per kernel, the largest
+    error and the call with the largest bound, for ``path_rows``."""
+    from repro_torch.kernels.segment_sum import ref
+    shapes = {}
+    for op, v, ids, valid, num_segments, (got, got_n) in calls:
+        name = ("masked_segment_sum" if op == "sum"
+                else "masked_segment_reduce")
+        what = (f"{label}: {op} {str(v.dtype).split('.')[1]} "
+                f"n={v.numel()} S={num_segments}")
+        err = parity(torch, ref, op, v, ids, valid, num_segments, got,
+                     got_n, what)
+        shapes[what] = shapes.get(what, 0) + 1
+        bound = segment_bound_ms(v.numel(), num_segments, v.element_size())
+        top = heaviest.setdefault(name, {"err": 0.0, "bound": -1.0})
+        top["err"] = max(top["err"], err)
+        if bound > top["bound"]:
+            top.update(bound=bound, call=(op, v, ids, valid, num_segments),
+                       kind=f"path {label}")
+    calls.clear()
+    expect(shapes, label, "no segment call was recorded")
+    log(f"{label}: every segment call matches its plain version: "
+        f"{json.dumps(shapes)}")
+
+
+def path_rows(torch, heaviest: dict) -> dict:
+    """Per kernel, its heaviest call of the partial path, checked and
+    timed again as phase 3's rows are (``check_case``)."""
+    from repro_torch.kernels.segment_sum import kernel, ops, ref
+    out = {}
+    for name, top in heaviest.items():
+        row = check_case(torch, kernel, ops, ref, *top["call"], top["kind"])
+        row["max_abs_err"] = max(row["max_abs_err"], top["err"])
+        log("kernel " + json.dumps(row))
+        out[name] = row
+    return out
+
+
+def partial_spans(rec) -> list:
+    return [dict(s.attrs, s=s.t1 - s.t0) for s in rec.spans("kernel")
+            if s.attrs.get("op") == "partitioned.partial_agg"]
+
+
+def group_by_timed(torch, be, cols, reps: int = 2):
+    """``reps`` calls of Q18's aggregate on ``be``: the first call's
+    result, and each call's wall seconds (synchronized)."""
+    key, specs = ORDER_LINES
+    out, walls = None, []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        got = be.group_by_agg(cols, [key], specs)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        out = got if out is None else out
+    return out, walls
+
+
+def routed_plan(data):
+    """The TPC-H pipeline, planned with the sources' row counts and
+    optimized with the default passes (``partial_agg`` among them)."""
+    from repro_torch.core.planner import plan
+    from repro_torch.examples.tpch import build_pipeline
+    from repro_torch.exec.stats import TableStats
+    from repro_torch.optimizer import optimize
+    stats = {t: TableStats(n_rows=len(next(iter(cols.values()))))
+             for t, cols in data.items()}
+    return optimize(plan(build_pipeline(), table_stats=stats))
+
+
+def phase_partial(torch, np, data, slice_tables):
+    """5b: (a) Q18's aggregate on ``partitioned`` over the card(s), (b)
+    the same over four partitions, (c) the pipeline with ``partial_agg``
+    routing it there, (d) the join queries over four partitions, (e) the
+    paper's running example. Every segment kernel call of the partial
+    path in (a)-(d) is held against its plain version on the same card
+    tensors. Returns each path's launches, and per segment kernel the
+    row of its heaviest call there (``path_rows``)."""
+    from repro_torch import exec as exec_backends
+    from repro_torch.configs.paper_pipeline import build_pipeline, seed_lake
+    from repro_torch.core.planner import plan
+    from repro_torch.core.runner import Client
+    from repro_torch.exec.partitioned import PartitionedBackend
+    from repro_torch.exec.torch_backend import TorchBackend
+    from repro_torch.exec.vectorized import VectorizedBackend
+    from repro_torch.obs import tracing
+
+    launches, heaviest, calls = {}, {}, []
+    key, specs = ORDER_LINES
+    li = data["lineitem"]
+    cols = {c: (li[c], None) for c in (key, "l_quantity", "l_extendedprice")}
+    want, host_walls = group_by_timed(torch, VectorizedBackend(), cols)
+
+    # (a) one card (every visible card: one on this machine)
+    one = PartitionedBackend(device=DEVICE)
+    reset_launches()
+    with tracing() as rec, segment_calls(calls):
+        got, part_walls = group_by_timed(torch, one, cols, reps=1)
+    launches["partial_1card"] = read_launches()
+    check_calls(torch, calls, "partial a", heaviest)
+    log(f"partial a: {one.cache_token()} launches "
+        f"{json.dumps(launches['partial_1card'])} spans "
+        f"{json.dumps(partial_spans(rec))}")
+    expect(launches["partial_1card"]["masked_segment_sum"] > 0
+           and launches["partial_1card"]["masked_segment_reduce"] > 0,
+           "partial a: a segment kernel never launched")
+    expect(len(partial_spans(rec)) == 1, "partial a: no partial_agg span")
+    same_columns(np, got, want, "partial a: partitioned vs vectorized")
+    again, walls = group_by_timed(torch, one, cols)
+    same_columns(np, again, want, "partial a: second call")
+    part_walls += walls
+    _, torch_walls = group_by_timed(torch, TorchBackend(device=DEVICE), cols)
+    log(f"partial a: rows={len(li[key])} groups={len(want[key][0])} "
+        f"wall_s partitioned={part_walls} torch={torch_walls} "
+        f"vectorized={host_walls}; bit for bit")
+    profile_device(torch, "partial a partitioned",
+                   lambda: one.group_by_agg(cols, [key], specs))
+
+    # (b) four partitions through the multi-card code
+    four = PartitionedBackend(devices=FOUR_CARDS)
+    reset_launches()
+    with tracing() as rec, segment_calls(calls):
+        got, walls = group_by_timed(torch, four, cols, reps=1)
+    launches["partial_4"] = read_launches()
+    check_calls(torch, calls, "partial b", heaviest)
+    spans = partial_spans(rec)
+    log(f"partial b: {four.cache_token()} launches "
+        f"{json.dumps(launches['partial_4'])} spans {json.dumps(spans)}")
+    expect(len(spans) == 1 and spans[0]["partitions"] == 4,
+           "partial b: the partial path did not run on four partitions")
+    same_columns(np, got, want, "partial b: 4 partitions vs vectorized")
+    _, more = group_by_timed(torch, four, cols)
+    log(f"partial b: wall_s {walls + more}; bit for bit")
+
+    # (c) the routing: partial_agg sends order_lines to the registered
+    # partitioned backend, four partitions
+    exec_backends.register("partitioned",
+                           lambda: PartitionedBackend(devices=FOUR_CARDS))
+    try:
+        pl = routed_plan(data)
+        step = next(s for s in pl.steps if s.node.name == "order_lines")
+        expect("strategy=partial" in step.logical.describe()
+               and any("partial_agg" in m for m in step.provenance),
+               "partial c: no partial_agg rewrite", step.provenance)
+        log(f"partial c: order_lines provenance {list(step.provenance)}")
+        reset_launches()
+        with tracing() as rec, segment_calls(calls):
+            routed, _, wall = run_pipeline(data, plan_=pl)
+        launches["partial_route"] = read_launches()
+        check_calls(torch, calls, "partial c", heaviest)
+        spans = partial_spans(rec)
+        log(f"partial c: launches {json.dumps(launches['partial_route'])} "
+            f"spans {json.dumps(spans)} wall_s={wall:.3f}")
+        expect(any(sp["partitions"] == 4 for sp in spans),
+               "partial c: order_lines did not run as partials")
+        host, _, host_wall = run_pipeline(data, "vectorized")
+        assert_same(np, routed, host, "partial c: routed vs vectorized")
+        assert_same(np, routed, slice_tables,
+                    "partial c: routed vs the unoptimized plan (phase 4)")
+        again, _, again_wall = run_pipeline(data, plan_=routed_plan(data),
+                                            cache=False)
+        fp = {t: routed[t].fingerprint() for t in routed}
+        expect(fp == {t: again[t].fingerprint() for t in again},
+               "partial c: cache=False rerun changed fingerprints")
+        log(f"partial c: vectorized wall_s={host_wall:.3f}, cache=False "
+            f"rerun wall_s={again_wall:.3f}; tables match; fingerprints "
+            f"identical")
+        del host, again, routed
+    finally:
+        exec_backends.register("partitioned",
+                               exec_backends._partitioned_factory)
+    expect(exec_backends.get_backend("partitioned").cards
+           == torch.cuda.device_count(), "partial c: registry not restored")
+
+    # (d) the join queries over four partitions
+    client = sql_client(data)
+    for label, (query, probe) in QUERIES.items():
+        reset_launches()
+        with tracing() as rec, segment_calls(calls):
+            result, wall = run_query(client, query, four, cache=False)
+        path = f"partial_{label}"
+        launches[path] = read_launches()
+        check_calls(torch, calls, f"partial d {label}", heaviest)
+        spans = partial_spans(rec)
+        expect(launches[path][probe] > 0, path, probe, "never launched")
+        expect(len(spans) == 1 and spans[0]["partitions"] == 4, path,
+               "the GROUP BY did not run as partials")
+        host, host_wall = run_query(client, query, "vectorized",
+                                    cache=False)
+        assert_same(np, {"q": result.table}, {"q": host.table},
+                    f"{path} vs vectorized", QUERY_FLOATS)
+        log(f"partial d {label}: launches {json.dumps(launches[path])} "
+            f"wall_s={wall:.3f} vectorized wall_s={host_wall:.3f}; match")
+
+    # (e) the paper's running example on the default backend
+    for rows in (5, PAPER_ROWS):
+        fps = []
+        for backend in (None, "vectorized"):
+            c = Client()
+            seed_lake(c, rows=rows)
+            pl = plan(build_pipeline(with_friend=True))
+            reset_launches()
+            t0 = time.perf_counter()
+            if backend is None:
+                res = c.run(pl, "main")
+                launches[f"paper_{rows}"] = read_launches()
+            else:
+                with exec_backends.use_backend(backend):
+                    res = c.run(pl, "main")
+            wall = time.perf_counter() - t0
+            expect(res.state.status == "committed", "paper", rows, backend,
+                   res.state)
+            names = [s.node.name for s in pl.steps]
+            expect(names[:3] == ["parent_table", "child_table",
+                                 "grand_child"]
+                   and "family_friend" in names, "paper steps", names)
+            expect(not c.read_table("main", "family_friend")
+                   .has_nulls("col5"), "paper: NULL in family_friend.col5")
+            fps.append({t: c.read_table("main", t).fingerprint()
+                        for t in sorted(res.tables)})
+            log(f"partial e: paper pipeline rows={rows} "
+                f"{backend or 'torch_auto'} wall_s={wall:.3f} committed")
+        expect(fps[0] == fps[1], "paper: torch_auto vs vectorized", fps)
+        log(f"partial e: rows={rows} fingerprints match vectorized "
+            f"{json.dumps(fps[0])}; launches "
+            f"{json.dumps(launches[f'paper_{rows}'])}")
+    expect(launches[f"paper_{PAPER_ROWS}"]["masked_segment_sum"] > 0,
+           "paper: the parent's GROUP BY never reached the card")
+    return launches, path_rows(torch, heaviest)
 
 
 # ---------------------------------------------------------------------------
@@ -1583,32 +1929,42 @@ def main() -> int:
     log(f"data: sf={args.sf} seed={args.seed} rows="
         f"{ {k: len(next(iter(v.values()))) for k, v in data.items()} } "
         f"generated in {time.perf_counter() - t0:.2f} s")
-    by_path = {"slice": phase_slice(torch, np, data, args.seed)}
+    by_path = {}
+    by_path["slice"], slice_tables = phase_slice(torch, np, data, args.seed)
     by_path.update(phase_queries(torch, np, data, args.seed))
     clock = phase_done("4-5 (slice, queries)", clock)
 
-    main_rows = {   # the heaviest shape each kernel gets on the main path
-        "masked_segment_sum": ("sum", "int64", Q18_GROUPS),
-        "masked_segment_reduce": ("min", "float64", Q18_GROUPS),
-    }
+    # 5b. partial aggregation over a list of cards, the paper's example
+    partial_launches, partial_rows = phase_partial(torch, np, data,
+                                                   slice_tables)
+    by_path.update(partial_launches)
+    if args.log_dir:
+        with open(os.path.join(args.log_dir, "kernels.jsonl"), "a") as f:
+            for row in partial_rows.values():
+                f.write(json.dumps(row) + "\n")
+    del slice_tables
+    clock = phase_done("5b (partial aggregation, paper example)", clock)
+
     kernels = []
-    for name, (op, dt, s) in main_rows.items():
-        row = next(r for r in rows if (r["op"], r["dtype"], r["S"],
-                                       r["kind"]) == (op, dt, s, "plain"))
-        ops_ = ("sum",) if name == "masked_segment_sum" else ("min", "max")
+    for name, ops_ in (("masked_segment_sum", ("sum",)),
+                       ("masked_segment_reduce", ("min", "max"))):
+        # the heaviest call each kernel gets on the main path: 5b's
+        row = partial_rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
             "launches": sum(p[name] for p in by_path.values()),
             "launches_by_path": {k: p[name] for k, p in by_path.items()},
-            "max_abs_err": max(r["max_abs_err"] for r in rows
-                               if r["op"] in ops_),
+            "max_abs_err": max([r["max_abs_err"] for r in rows
+                                if r["op"] in ops_]
+                               + [row["max_abs_err"]]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             "kernel_only_ms": row["kernel_only_ms"],
             "device_ms": row["device_ms"],
-            "shape": f"n={N_ROWS} S={s} {dt} {op}",
+            "shape": (f"n={row['n']} S={row['S']} {row['dtype']} "
+                      f"{row['op']} ({row['kind']})"),
             "h2d_ms": copy_ms,
         })
     for name in ("hash_probe", "masked_hash_probe"):

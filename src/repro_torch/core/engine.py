@@ -40,12 +40,24 @@ from typing import Callable, Mapping
 from repro_torch import exec as exec_backends
 from repro_torch.core.contracts import validate_table
 from repro_torch.core.errors import ExecutionError
+from repro_torch.core.logical import holds_partial
 from repro_torch.core.planner import Plan, PlanStep
 from repro_torch.core.store import ObjectStore
 from repro_torch.data.tables import Table
 from repro_torch.obs import get_recorder
 
 __all__ = ["cache_key", "NodeCache", "ExecutionOutcome", "PlanExecutor"]
+
+
+def _partitioned_token() -> str:
+    """The token of the backend a partial aggregate runs on: the
+    registered ``partitioned`` instance (``Aggregate._exec``), or ``-``
+    when it does not construct and the active backend, already keyed,
+    takes the step."""
+    try:
+        return exec_backends.get_backend("partitioned").cache_token()
+    except (KeyError, exec_backends.BackendUnavailable):
+        return "-"
 
 
 def cache_key(step: PlanStep,
@@ -64,8 +76,12 @@ def cache_key(step: PlanStep,
     token extends the bare name with ambient execution state the
     backend depends on — the device of the ``torch`` backend — because
     another device regroups float SUM summation order under the
-    documented carve-out and must never serve a stale cross-device hit. ``None`` if the node
-    is not content-addressable (e.g. it captures state that cannot be
+    documented carve-out and must never serve a stale cross-device hit.
+    A step holding a partial aggregate (the ``partial_agg`` rewrite)
+    runs that aggregate on the registered ``partitioned`` backend, not
+    the active one, so that backend's token (its cards and partition
+    count, which regroup float SUMs) is folded in as well. ``None`` if
+    the node is not content-addressable (e.g. it captures state that cannot be
     fingerprinted stably): such nodes always execute.
 
     Optimizer state is key material too, same discipline: the active
@@ -87,6 +103,8 @@ def cache_key(step: PlanStep,
     h.update(material.encode())
     h.update(
         f"|backend={exec_backends.active_backend().cache_token()}".encode())
+    if step.logical is not None and holds_partial(step.logical):
+        h.update(f"|partial={_partitioned_token()}".encode())
     if step.opt_passes:
         h.update(f"|opt={','.join(step.opt_passes)}".encode())
     for p in step.provenance:

@@ -167,8 +167,9 @@ class Aggregate(LogicalOp):
     ``strategy`` is physical routing, not semantics: ``"auto"`` (the
     default) dispatches through the active backend; ``"partial"`` — set
     only by the optimizer's ``partial_agg`` rewrite — requests the
-    sharded backend's pre-exchange partial aggregation, degrading to
-    the active backend when no mesh backend is available (every
+    registered ``partitioned`` backend's per-partition partial
+    aggregation, degrading to the active backend when it does not
+    construct here (every
     strategy computes the same table; only float summation order can
     differ, which is exactly why a non-default strategy is rendered in
     ``describe()`` and therefore moves the cache key)."""
@@ -202,6 +203,14 @@ class Aggregate(LogicalOp):
         cols = be.group_by_agg(t._to_cols(), self.keys, self.specs,
                                **kwargs)
         return Table._from_cols(cols), None
+
+
+def holds_partial(op: LogicalOp) -> bool:
+    """True iff the tree holds an ``Aggregate(strategy="partial")``: it
+    then runs on the registered ``partitioned`` backend, whose layout
+    the cache key must carry (``engine.cache_key``)."""
+    return ((isinstance(op, Aggregate) and op.strategy == "partial")
+            or any(holds_partial(c) for c in op.children()))
 
 
 @dataclasses.dataclass(frozen=True)

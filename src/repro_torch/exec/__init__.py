@@ -11,8 +11,10 @@ is swappable:
 - ``vectorized`` — numpy factorize/sort kernels;
 - ``torch``      — group-by aggregation in the CUDA segment kernels
   (``kernels/segment_sum``), on the card;
-- ``partitioned`` — ``torch`` plus the hash join on the card, probed
-  through the CUDA hash-probe kernels (``kernels/hash_join``);
+- ``partitioned`` — ``torch`` plus the hash join, probed through the
+  CUDA hash-probe kernels (``kernels/hash_join``), and the partial
+  group-by (per-partition segment-kernel partials, combined on their
+  owner card), over a list of cards (every visible card by default);
 - ``torch_auto`` — statistics-driven per-call selection among the above
   (exec/torch_auto.py's decision table), on the card. The default.
 
@@ -68,8 +70,12 @@ _active: "str | Backend | None" = None  # resolved lazily (env) on first use
 
 def register(name: str, factory: Callable[[], Backend]) -> None:
     """Register a backend factory. Construction is deferred to first
-    :func:`get_backend` so optional dependencies stay optional."""
-    _factories[name] = factory
+    :func:`get_backend` so optional dependencies stay optional.
+    Registering a name again drops the instance built from its earlier
+    factory: the next :func:`get_backend` builds from the new one."""
+    with _lock:
+        _factories[name] = factory
+        _instances.pop(name, None)
 
 
 def get_backend(name: str) -> Backend:

@@ -1,10 +1,16 @@
-"""Partitioned hash join on the card: the one-card twin of ``repro``'s
-``sharded`` backend.
+"""Partitioned hash join and partial group-by over a list of cards: the
+twin of ``repro``'s ``sharded`` backend.
 
 ``repro.exec.sharded`` splits the join's key space over a JAX mesh, one
-key range per device, and probes each range under ``shard_map``. Here
-the same key coding, partition layout, probe strategies and ragged
-emission run on one card (DESIGN.md §10):
+key range per device, and runs one ``shard_map`` call over every device
+from one process. The port's counterpart of that mesh is one process
+that owns a list of cards (``devices``, every visible CUDA card by
+default) and moves data between them with peer copies; partition ``p``
+lives on ``devices[p % cards]``, and results gather on the first card
+before they go to the host. One card gives one partition, and the
+layout is the identity (DESIGN.md §10).
+
+The join:
 
 1. **Key coding** (host, numpy). A single same-kind integer key ships
    as its raw values when they are already int32 slot codes, or rebased
@@ -17,13 +23,11 @@ emission run on one card (DESIGN.md §10):
    and NaN keys) are coded to the dtype's max, the sentinel.
 2. **Partition** (host). ``partitions`` key ranges (a mixing hash in
    hash mode); each range gets the rows of every source chunk in row
-   order, laid out as the sharded backend's ``all_to_all`` would
-   deliver them. One card gives ``partitions=1``, whose layout is the
-   identity: rows stay where they are. More partitions are probed one
-   after another; they exist so the layout the multi-card slice needs
-   is tested now.
-3. **Probe** (the card). "Table" mode (key span up to
-   ``MAX_TABLE_SPAN``) builds the direct-address ``(start, count)``
+   order, laid out owner-major, as the sharded backend's ``all_to_all``
+   would deliver them. So each owner's build and probe lanes go
+   straight to its own card.
+3. **Probe** (each partition on its card). "Table" mode (key span up
+   to ``MAX_TABLE_SPAN``) builds the direct-address ``(start, count)``
    table over the partition's slot range with integer ``bincount`` and
    scatters, and probes it through the CUDA ``hash_probe`` kernel, or
    ``masked_hash_probe`` with the probe-side filter fused in. "Hash"
@@ -33,10 +37,24 @@ emission run on one card (DESIGN.md §10):
 4. **Ragged emission** (host). Per-partition ``(start, count)`` pairs
    map back to left row order through the kept layout and expand
    through the vectorized backend's ``_emit_join``: the output equals
-   ``reference``'s bit for bit, row order included.
+   ``reference``'s bit for bit, row order included, on any list of
+   cards.
 
-Group-by aggregation is inherited from :class:`TorchBackend`; the
-sharded backend's partial aggregation waits for the multi-card slice.
+The group-by (``_partial_group_by``, ``sharded.py``'s partial
+aggregation): a single integer key with a dense span is rebased on the
+host to slot codes in O(n), with one more slot for NULL keys. Each
+source partition, a contiguous range of rows, reduces its rows into
+every slot on its own card through the segment kernels
+(``masked_segment_sum`` for COUNT and SUM, ``masked_segment_reduce``
+for MIN and MAX). Owner ``d`` receives slot range ``d`` of every
+source's partials by peer copy and combines them in source order
+through the same kernels, so integers wrap in the value dtype, float
+sums take no atomics, a NaN in any partition poisons its slot and of
+tied MIN/MAX values the later partition's wins, as the later row does
+in ``reference``. MEAN is SUM / COUNT on the host. The output order
+(first appearance) comes from the slot codes on the host, never from
+the card. Everything else (other keys, bfloat16 or host-only values,
+wide spans) takes the inherited :class:`TorchBackend` path.
 """
 from __future__ import annotations
 
@@ -46,12 +64,16 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.exec.base import (Columns, _column_length, payload_validity,
-                                   refuse_bfloat16_keys)
-from repro_torch.exec.torch_backend import TorchBackend
+from repro_torch.exec.base import (AggSpec, Columns, _column_length,
+                                   fill_value, normalize_agg_specs,
+                                   payload_validity, refuse_bfloat16_keys)
+from repro_torch.exec.torch_backend import TorchBackend, resolve_device
 from repro_torch.exec.vectorized import (VectorizedBackend, _and_key_validity,
-                                         _join_codes)
+                                         _join_codes, dense_span_affordable)
+from repro_torch.kernels.device import device_supports_dtype
 from repro_torch.kernels.hash_join.ops import hash_probe, masked_hash_probe
+from repro_torch.kernels.segment_sum.ops import (masked_segment_reduce,
+                                                 masked_segment_sum)
 from repro_torch.obs import get_recorder
 
 __all__ = ["PartitionedBackend", "MAX_TABLE_SPAN"]
@@ -95,24 +117,51 @@ def _sentinel(dtype: np.dtype):
 
 class PartitionedBackend(TorchBackend):
     name = "partitioned"
-    # the cards the backend spans (one, until the multi-card exchange)
-    cards = 1
 
     def __init__(self, *, device: "str | torch.device" = "cuda",
-                 partitions: int = 1):
-        super().__init__(device=device)
+                 devices: "Sequence[str | torch.device] | None" = None,
+                 partitions: "int | None" = None):
+        """``devices``: the cards, first the one results gather on; by
+        default every visible card when ``device`` is ``"cuda"`` with no
+        index, else ``[device]``; a given list replaces ``device``.
+        ``partitions``: the key ranges of the join and the row ranges of
+        the group-by, partition ``p`` on ``devices[p % cards]``; by
+        default one per card."""
+        if devices is None:
+            devices = [device]
+            if torch.device(device) == torch.device("cuda"):
+                # no index: every visible card, the current one first
+                devices += [torch.device("cuda", i)
+                            for i in range(torch.cuda.device_count())
+                            if i != torch.cuda.current_device()]
+        devices = [resolve_device(d, self) for d in devices]
+        if not devices:
+            raise ValueError("devices must name at least one card")
+        self.device = devices[0]
+        if len({d.type for d in devices}) != 1:
+            raise ValueError(f"the cards must all be cuda or all cpu, not "
+                             f"{[str(d) for d in devices]}")
+        self.devices = tuple(devices)
+        self.cards = len(self.devices)
+        if partitions is None:
+            partitions = self.cards
         if not 1 <= int(partitions) <= 255:     # partition ids are uint8
             raise ValueError(f"partitions must lie in [1, 255], not "
                              f"{partitions}")
         self.partitions = int(partitions)
 
+    def _card(self, p: int) -> torch.device:
+        """The card that partition ``p`` lives on."""
+        return self.devices[p % self.cards]
+
     def cache_token(self) -> str:
-        # the device regroups the inherited float SUMs; the partition
-        # count is part of the physical layout (join output is exact
-        # under every count, but a layout change must never be served a
+        # the device regroups float SUMs, and so does the list of cards
+        # (the partial group-by adds per partition); the partition count
+        # is part of the physical layout (join output is exact under
+        # every count, but a layout change must never be served a
         # cross-layout cache hit unnoticed).
-        return (f"{self.name}[{self.device};"
-                f"partitions={self.partitions}]")
+        cards = ",".join(map(str, self.devices))
+        return f"{self.name}[{cards};partitions={self.partitions}]"
 
     # -- join -----------------------------------------------------------
     def hash_join(self, left: Columns, right: Columns,
@@ -228,7 +277,7 @@ class PartitionedBackend(TorchBackend):
             for d in range(ndev):
                 starts[d], counts[d], gidx[d] = self._probe(
                     l_own[d], r_own[d], d * span_shard, span_shard,
-                    None if m_own is None else m_own[d])
+                    None if m_own is None else m_own[d], self._card(d))
 
         # int64 from here: the emission cumsums counts, and a join of
         # more than 2**31 output rows must not wrap there.
@@ -260,16 +309,18 @@ class PartitionedBackend(TorchBackend):
 
     # -- the probe on the device ------------------------------------------
     def _probe(self, lk: np.ndarray, rk: np.ndarray, base: int,
-               span_shard: int, lmask: "np.ndarray | None"
+               span_shard: int, lmask: "np.ndarray | None",
+               card: torch.device
                ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """One partition: per probe lane ``(start, count)`` into the
         grouped build layout, and ``gidx`` (grouped position -> arrival
-        position), computed on this backend's device."""
+        position), computed on the partition's card."""
         sent = int(_sentinel(lk.dtype))
-        lk_t, rk_t = self._put(lk), self._put(rk)
+        lk_t, rk_t = self._put(lk, card), self._put(rk, card)
         if span_shard > 0:
-            out = _probe_table(lk_t, rk_t, base, span_shard,
-                               None if lmask is None else self._put(lmask))
+            out = _probe_table(
+                lk_t, rk_t, base, span_shard,
+                None if lmask is None else self._put(lmask, card))
         elif lk.dtype.itemsize > 4:
             out = _probe_wide(lk_t, rk_t, sent)
         else:
@@ -356,6 +407,174 @@ class PartitionedBackend(TorchBackend):
             return lk, rk, -1
         return None                       # uint64 past int64: codes path
 
+    # -- aggregation -----------------------------------------------------
+    def group_by_agg(self, cols: Columns, keys: Sequence[str],
+                     specs: Sequence[AggSpec]) -> Columns:
+        specs = normalize_agg_specs(cols, keys, specs)
+        partial = self._partial_group_by(cols, keys, specs)
+        if partial is not None:
+            return partial
+        return super().group_by_agg(cols, keys, specs)
+
+    def _partial_group_by(self, cols: Columns, keys: Sequence[str],
+                          specs: tuple[AggSpec, ...]) -> "Columns | None":
+        """Per-partition partials, combined on their owner cards; None
+        when ineligible (the inherited path takes over): one integer
+        key whose span is dense enough to direct-address, every value
+        column one the segment kernels take. NULL keys take one extra
+        slot (SQL: one NULL group); integer keys cannot be NaN."""
+        n = _column_length(cols)
+        ndev = self.partitions
+        if n == 0 or n >= 2**31 - 2 or len(keys) != 1:
+            return None
+        kv, kvalid = cols[keys[0]]
+        if kv.dtype == object or kv.dtype.kind not in "iu":
+            return None
+        want: dict[str, set] = {}       # value column -> its partials
+        for fn, value, _out in specs:
+            if not device_supports_dtype(cols[value][0].dtype):
+                return None             # bfloat16 and host-only dtypes
+            stats = want.setdefault(value, set())
+            if fn in ("sum", "mean"):
+                stats.add("sum")
+            elif fn in ("min", "max"):
+                stats.add(fn)
+        kok = payload_validity(kv, kvalid)
+        any_null = not bool(kok.all())
+        if kok.any():
+            kvv = kv[kok] if any_null else kv
+            lo = int(kvv.min())
+            span = int(kvv.max()) - lo + 1
+        else:
+            lo, span = 0, 0
+        if span > MAX_TABLE_SPAN or not dense_span_affordable(span, n):
+            return None
+        n_slots = span + (1 if any_null else 0)   # last slot = NULL group
+        seg_shard = _next_pow2(-(-n_slots // ndev))
+        nseg = ndev * seg_shard
+        if nseg > MAX_TABLE_SPAN:
+            return None
+
+        # host: O(n) rebase to dense slot codes, no sort, no factorize
+        if kv.dtype.kind == "u" and kv.dtype.itemsize == 8:
+            gid = (kv - kv.dtype.type(lo)).astype(np.int32)
+        else:
+            gid = (kv.astype(np.int64, copy=False) - lo).astype(np.int32)
+        if any_null:
+            gid[~kok] = np.int32(span)
+        chunk = -(-n // ndev)
+        sources = [(s, s * chunk, min(n, (s + 1) * chunk))
+                   for s in range(ndev) if s * chunk < n]
+        names = list(want)
+        oks = {name: payload_validity(*cols[name]) for name in names}
+
+        rec = get_recorder()
+        kernel_ctx = _NOOP_CTX
+        if rec.enabled:
+            # per column one int32 COUNT partial and one value-dtype
+            # partial per stat, seg_shard lanes from each source to each
+            # other owner; "peer" counts those between two cards of the
+            # list (a card listed twice copies nothing on the device).
+            lane = sum(4 + cols[name][0].dtype.itemsize * len(want[name])
+                       for name in names)
+            pairs = [(s, d) for s, _, _ in sources for d in range(ndev)
+                     if s != d]
+            moved = lane * seg_shard * len(pairs)
+            peer = lane * seg_shard * sum(
+                s % self.cards != d % self.cards for s, d in pairs)
+            kernel_ctx = rec.span(
+                "kernel", op="partitioned.partial_agg", cards=self.cards,
+                partitions=ndev, rows=n, slots=n_slots,
+                exchange_bytes=moved, peer_bytes=peer)
+            rec.metrics.histogram(
+                "partitioned.exchange_bytes").observe(moved)
+        with kernel_ctx:
+            # each source partition reduces its rows on its own card
+            partials = []
+            for s, a, b in sources:
+                card = self._card(s)
+                g = self._put(gid[a:b], card)
+                partials.append({
+                    name: _reduce(self._put(cols[name][0][a:b], card), g,
+                                  self._put(oks[name][a:b], card),
+                                  nseg=nseg, stats=want[name])
+                    for name in names})
+            # first appearance per slot, on the host while the cards
+            # work: the reversed assignment leaves each slot its FIRST
+            # row (later writes win)
+            first = np.full(n_slots, n, dtype=np.int64)
+            first[gid[::-1]] = np.arange(n - 1, -1, -1, dtype=np.int64)
+            codes = np.flatnonzero(first < n)
+            out_codes = codes[np.argsort(first[codes], kind="stable")]
+            # owner d combines slot range d of every source, then the
+            # first card gathers the output slots
+            owners = [self._combine(partials, d, seg_shard)
+                      for d in range(ndev)]
+            at = self._put(out_codes)
+            got = {name: {
+                stat: _gather([o[name][stat] for o in owners], self.device,
+                              at).cpu().numpy()
+                for stat in partials[0][name]} for name in names}
+
+        kdt = kv.dtype
+        if kdt.kind == "u" and kdt.itemsize == 8:
+            keyvals = kdt.type(lo) + out_codes.astype(kdt)
+        else:
+            keyvals = (out_codes + lo).astype(kdt)
+        kmask = np.ones(len(out_codes), dtype=bool)
+        if any_null:
+            kmask = out_codes != span
+            keyvals[~kmask] = fill_value(kdt)
+        data: dict[str, tuple[np.ndarray, np.ndarray | None]] = {
+            keys[0]: (keyvals, kmask)}
+        for fname, value, out_name in specs:
+            cnt = got[value]["count"].astype(np.int64)
+            if fname == "count":
+                data[out_name] = (cnt, None)
+                continue
+            has = cnt > 0
+            if fname == "mean":
+                m = got[value]["sum"].astype(np.float64)
+                np.divide(m, cnt, out=m, where=has)
+                m[~has] = fill_value(np.dtype(np.float64))
+                data[out_name] = (m, has)
+                continue
+            vdt = cols[value][0].dtype
+            r = got[value][fname].astype(vdt, copy=True)
+            r[~has] = fill_value(vdt)
+            data[out_name] = (r, has)
+        return data
+
+    def _combine(self, partials: list, d: int, seg_shard: int) -> dict:
+        """Owner ``d``'s slot range: every source's partials for it,
+        copied to the owner's card and combined there in source order
+        through the segment kernels."""
+        card = self._card(d)
+        lo, hi = d * seg_shard, (d + 1) * seg_shard
+        if len(partials) == 1:
+            return {name: {stat: t[lo:hi] for stat, t in got.items()}
+                    for name, got in partials[0].items()}
+        ids = torch.arange(seg_shard, dtype=torch.int32,
+                           device=card).repeat(len(partials))
+        out = {}
+        for name in partials[0]:
+            part = {stat: torch.cat([p[name][stat][lo:hi].to(card)
+                                     for p in partials])
+                    for stat in partials[0][name]}
+            # a source's empty slot holds 0 or the reduce identity:
+            # left out of every combine
+            has = part["count"] > 0
+            got = {"count": masked_segment_sum(part["count"], ids, has,
+                                               seg_shard)[0]}
+            if "sum" in part:
+                got["sum"] = masked_segment_sum(part["sum"], ids, has,
+                                                seg_shard)[0]
+            for op in ("min", "max"):
+                if op in part:
+                    got[op] = masked_segment_reduce(part[op], ids, has,
+                                                    seg_shard, op=op)[0]
+            out[name] = got
+        return out
 
 # ---------------------------------------------------------------------------
 # probe strategies (torch, on the backend's device)
@@ -431,6 +650,36 @@ def _probe_wide(lk: torch.Tensor, rk: torch.Tensor, sent: int):
     counts = torch.where(lk != sent, ends - starts, 0)
     return (starts.to(torch.int32), counts.to(torch.int32),
             order.to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# partial aggregation (torch, on a partition's card)
+# ---------------------------------------------------------------------------
+
+def _reduce(values: torch.Tensor, gid: torch.Tensor, ok: torch.Tensor, *,
+            nseg: int, stats: set) -> dict:
+    """One source partition's partials over all ``nseg`` slots: the
+    COUNT, and SUM / MIN / MAX as ``stats`` asks. The counts come from
+    the first kernel that runs (a SUM, else a MIN or MAX)."""
+    got = {}
+    if "sum" in stats or not stats:
+        got["sum"], got["count"] = masked_segment_sum(values, gid, ok, nseg)
+        if "sum" not in stats:
+            del got["sum"]              # a COUNT alone
+    for op in ("min", "max"):
+        if op in stats:
+            got[op], count = masked_segment_reduce(values, gid, ok, nseg,
+                                                   op=op)
+            got.setdefault("count", count)
+    return got
+
+
+def _gather(parts: list, card: torch.device, at: torch.Tensor
+            ) -> torch.Tensor:
+    """The owners' slot ranges, in order, on ``card``, at slots ``at``."""
+    full = (parts[0].to(card) if len(parts) == 1 else
+            torch.cat([t.to(card) for t in parts]))
+    return full.index_select(0, at)
 
 
 # ---------------------------------------------------------------------------

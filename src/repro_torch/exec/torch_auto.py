@@ -14,6 +14,9 @@ group_by_agg          a bfloat16 value column                    vectorized
 join / group_by_agg   total rows <= tiny (64)                    reference
 join                  total rows >= shard rows (200,000)         partitioned
 join                  anything else                              vectorized
+group_by_agg          rows >= shard rows, ``partitioned`` spans  partitioned
+                      more than one card, a single int key with
+                      a dense span, every value dtype lowers
 group_by_agg          rows >= device rows (100,000) and every    torch
                       value dtype lowers (``kernels/device.py``)
 group_by_agg          anything else                              vectorized
@@ -34,8 +37,14 @@ vectorized backend's direct-address ``bincount`` probe, which no device
 round trip amortizes on a TPU host; on the card the ``hash_probe``
 kernel *is* that direct-address table, so large dense-key joins go to
 ``partitioned`` too. ``chip_smoke.py`` times the ``vectorized`` run of
-the same queries beside it, so the choice can be measured. Neither is
-the sharded group-by row here: it needs more than one card.
+the same queries beside it, so the choice can be measured. The
+reference's sharded group-by row is here as the ``partitioned`` row:
+per-partition partials pay only when several cards share the work, so
+on one card it stays off, as ``repro``'s does on one device. The row
+counts the cards of this backend's own ``partitioned`` delegate, the
+instance it dispatches to; the ``partial_agg`` pass counts those of the
+registered ``partitioned``, the instance a rewritten aggregate runs on,
+and the cache key carries that instance's token (``engine.cache_key``).
 
 The thresholds keep the reference's values and are machine constants,
 not semantics: every candidate agrees with ``reference`` bit for bit
@@ -56,13 +65,16 @@ from repro_torch.exec import BackendUnavailable
 from repro_torch.exec.base import (AggSpec, Backend, Columns,
                                    normalize_agg_specs)
 from repro_torch.exec.stats import TableStats, collect_stats
+from repro_torch.exec.vectorized import dense_span_affordable
 from repro_torch.kernels.device import device_supports_dtype
 from repro_torch.obs import get_recorder
 
 __all__ = ["TorchAutoBackend", "choose_join", "choose_group_by_agg",
            "explain_join", "explain_group_by_agg"]
 
-_POLICY_VERSION = 1
+# v2: the group-by table learned the partitioned partial-aggregation
+# row; the bump moves every cache key of the earlier policy.
+_POLICY_VERSION = 2
 
 TINY_ROWS = 64
 SHARD_ROWS = 200_000
@@ -90,9 +102,10 @@ def choose_join(left: TableStats, right: TableStats) -> str:
 
 
 def explain_group_by_agg(stats: TableStats,
-                         value_dtypes: Sequence[np.dtype]
-                         ) -> tuple[str, str]:
-    """The group_by_agg decision table, returning ``(backend, why)``."""
+                         value_dtypes: Sequence[np.dtype], *,
+                         cards: int = 1) -> tuple[str, str]:
+    """The group_by_agg decision table, returning ``(backend, why)``;
+    ``cards`` is the number of cards ``partitioned`` spans."""
     if any(bfloat16.is_bfloat16(dt) for dt in value_dtypes):
         return "vectorized", (
             "bfloat16 value column: aggregated on the host, rounded as "
@@ -101,6 +114,12 @@ def explain_group_by_agg(stats: TableStats,
         return "reference", (
             f"rows {stats.n_rows} <= tiny threshold {TINY_ROWS}")
     lowers = all(device_supports_dtype(dt) for dt in value_dtypes)
+    if (stats.n_rows >= SHARD_ROWS and cards > 1 and lowers
+            and stats.single_int_key and _dense_group_span(stats)):
+        return "partitioned", (
+            f"rows {stats.n_rows} >= shard threshold {SHARD_ROWS} on "
+            f"{cards} cards with dense single int key and "
+            f"device-lowerable values (per-partition partials)")
     if stats.n_rows >= DEVICE_ROWS and lowers:
         return "torch", (
             f"rows {stats.n_rows} >= device threshold {DEVICE_ROWS} "
@@ -111,9 +130,17 @@ def explain_group_by_agg(stats: TableStats,
 
 
 def choose_group_by_agg(stats: TableStats,
-                        value_dtypes: Sequence[np.dtype]) -> str:
+                        value_dtypes: Sequence[np.dtype], *,
+                        cards: int = 1) -> str:
     """The stats -> backend decision table for group_by_agg."""
-    return explain_group_by_agg(stats, value_dtypes)[0]
+    return explain_group_by_agg(stats, value_dtypes, cards=cards)[0]
+
+
+def _dense_group_span(stats: TableStats) -> bool:
+    if None in (stats.int_key_lo, stats.int_key_hi):
+        return False
+    span = stats.int_key_hi - stats.int_key_lo + 1
+    return dense_span_affordable(span, stats.n_rows)
 
 
 class TorchAutoBackend(Backend):
@@ -137,7 +164,8 @@ class TorchAutoBackend(Backend):
             "reference": ReferenceBackend(),
             "vectorized": VectorizedBackend(),
             "torch": on_device,
-            "partitioned": PartitionedBackend(device=self.device),
+            # "cuda" with no index: every visible card
+            "partitioned": PartitionedBackend(device=device),
         }
 
     def delegate(self, name: str) -> Backend:
@@ -214,7 +242,8 @@ class TorchAutoBackend(Backend):
             stats = collect_stats(cols, keys,
                                   estimate_cardinality=False)
         choice, reason = explain_group_by_agg(
-            stats, tuple(cols[value][0].dtype for _fn, value, _o in specs))
+            stats, tuple(cols[value][0].dtype for _fn, value, _o in specs),
+            cards=self._delegates["partitioned"].cards)
         rec = get_recorder()
         if rec.enabled:
             rec.event("auto_decision", op="group_by_agg",

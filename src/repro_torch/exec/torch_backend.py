@@ -31,28 +31,35 @@ from repro_torch.kernels.device import device_supports_dtype
 from repro_torch.kernels.segment_sum.ops import (masked_segment_reduce,
                                                  masked_segment_sum)
 
-__all__ = ["TorchBackend"]
+__all__ = ["TorchBackend", "resolve_device"]
+
+
+def resolve_device(device: "str | torch.device",
+                   backend: VectorizedBackend) -> torch.device:
+    """``device`` checked for ``backend`` (named in the errors), with a
+    CUDA card given no index resolved to the current one."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            cls = type(backend).__name__
+            raise BackendUnavailable(
+                f"execution backend {backend.name!r} runs on CUDA, and no "
+                f"CUDA device is available; to run it on the CPU, ask "
+                f"for it: use_backend({cls}(device=\"cpu\")), or "
+                f"select the 'vectorized' backend")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    elif device.type != "cpu":
+        raise ValueError(f"{type(backend).__name__} runs on cuda or cpu, "
+                         f"not {device}")
+    return device
 
 
 class TorchBackend(VectorizedBackend):
     name = "torch"
 
     def __init__(self, *, device: "str | torch.device" = "cuda"):
-        device = torch.device(device)
-        if device.type == "cuda":
-            if not torch.cuda.is_available():
-                cls = type(self).__name__
-                raise BackendUnavailable(
-                    f"execution backend {self.name!r} runs on CUDA, and no "
-                    f"CUDA device is available; to run it on the CPU, ask "
-                    f"for it: use_backend({cls}(device=\"cpu\")), or "
-                    f"select the 'vectorized' backend")
-            if device.index is None:
-                device = torch.device("cuda", torch.cuda.current_device())
-        elif device.type != "cpu":
-            raise ValueError(f"{type(self).__name__} runs on cuda or cpu, "
-                             f"not {device}")
-        self.device = device
+        self.device = resolve_device(device, self)
 
     def cache_token(self) -> str:
         # the device regroups float SUMs (the documented carve-out), so a
@@ -72,8 +79,10 @@ class TorchBackend(VectorizedBackend):
         rank[grp_order] = np.arange(n_groups)
         return rank[inv_code]
 
-    def _put(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+    def _put(self, arr: np.ndarray,
+             device: "torch.device | None" = None) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(
+            self.device if device is None else device)
 
     def _device_args(self, values, ok, order, bounds, grp_order, n_groups):
         gid = self._segment_ids(order, bounds, grp_order, n_groups,

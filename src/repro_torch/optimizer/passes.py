@@ -37,9 +37,10 @@ projections and joins, all of which gather rows rather than summing
 exactly) — so their optimized-vs-unoptimized equality is exact, not
 tolerance-based. The one exception is ``partial_agg``, which is
 physical routing: it changes *where* an aggregation runs (the
-partitioned backend's per-card partials, once it spans several cards), which regroups float sums within the
-documented carve-out; integer aggregates remain bit-for-bit, and the
-strategy renders in ``describe()`` so the cache key moves with it.
+partitioned backend's per-partition partials, when it spans several
+cards), which regroups float sums within the documented carve-out;
+integer aggregates remain bit-for-bit, and the strategy renders in
+``describe()`` so the cache key moves with it.
 """
 from __future__ import annotations
 
@@ -713,17 +714,19 @@ def partial_agg(plan: P.Plan) -> P.Plan:
     differential suite pins them exactly.
 
     Gate (all must hold, read at optimize time): plan-time stats show
-    ``n_rows >= repro_torch.exec.torch_auto.SHARD_ROWS`` for the aggregate's one
-    source table; the ``partitioned`` backend spans more than one card
-    (never yet: one card until the multi-card slice, so the pass is a
-    no-op) and constructs; the single group key is declared with an
-    integer dtype by that source (the dense-rebase partial path only
-    handles int keys — anything else would just flip the strategy and
-    fall straight back at dispatch).
+    ``n_rows >= repro_torch.exec.torch_auto.SHARD_ROWS`` for the
+    aggregate's one source table; the registered ``partitioned``
+    backend constructs and spans more than one card (the instance
+    ``Aggregate._exec`` will run, so the plan-time gate and the run-time
+    backend agree; on one card the pass is a no-op, as ``repro``'s is on
+    one device); the single group key is declared with an integer dtype
+    by that source (the dense-rebase partial path only handles int keys
+    — anything else would just flip the strategy and fall straight back
+    at dispatch).
     """
     from repro_torch.exec import torch_auto as auto_mod
     devices = _mesh_devices()
-    if devices <= 1 or not _sharded_available():
+    if devices <= 1:
         return P.rebuild(plan, list(plan.steps))
     shard_rows = auto_mod.SHARD_ROWS
 
@@ -769,19 +772,13 @@ def partial_agg(plan: P.Plan) -> P.Plan:
 
 
 def _mesh_devices() -> int:
-    """The cards the ``partitioned`` backend spans: one, until the
-    multi-card exchange lands, so this pass leaves every plan alone."""
-    from repro_torch.exec.partitioned import PartitionedBackend
-    return PartitionedBackend.cards
-
-
-def _sharded_available() -> bool:
+    """The cards the registered ``partitioned`` backend spans (one when
+    it does not construct here)."""
     from repro_torch import exec as exec_backends
     try:
-        exec_backends.get_backend("partitioned")
+        return exec_backends.get_backend("partitioned").cards
     except (KeyError, exec_backends.BackendUnavailable):
-        return False
-    return True
+        return 1
 
 
 # ---------------------------------------------------------------------------

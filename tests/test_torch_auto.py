@@ -26,6 +26,7 @@ from repro_torch.core.dag import Pipeline  # noqa: E402
 from repro_torch.core.planner import plan  # noqa: E402
 from repro_torch.exec import BackendUnavailable  # noqa: E402
 from repro_torch.exec import torch_auto  # noqa: E402
+from repro_torch.exec.partitioned import PartitionedBackend  # noqa: E402
 from repro_torch.exec.stats import TableStats, collect_stats  # noqa: E402
 from repro_torch.exec.torch_auto import (  # noqa: E402
     TorchAutoBackend, choose_group_by_agg, choose_join,
@@ -90,6 +91,62 @@ def test_group_by_agg_rows(n, dtypes, want, why):
     assert choose_group_by_agg(_st(n), dtypes) == want
 
 
+@pytest.mark.parametrize("cards", [2, 8])
+def test_group_by_agg_partitioned_row(cards):
+    dense = dict(key_kinds=("i",), int_key_lo=0, int_key_hi=1_500_000,
+                 int_key_span=1_500_001)
+    st = _st(6_001_215, **dense)
+    assert explain_group_by_agg(st, (I64, F64), cards=cards) == (
+        "partitioned",
+        f"rows 6001215 >= shard threshold 200000 on {cards} cards with "
+        f"dense single int key and device-lowerable values "
+        f"(per-partition partials)")
+    # one card, a sparse key, two keys or a host-only value: the old rows
+    assert choose_group_by_agg(st, (I64, F64)) == "torch"
+    sparse = dataclasses.replace(st, int_key_hi=10**12)
+    assert choose_group_by_agg(sparse, (I64,), cards=cards) == "torch"
+    two = dataclasses.replace(st, key_kinds=("i", "i"))
+    assert choose_group_by_agg(two, (I64,), cards=cards) == "torch"
+    assert choose_group_by_agg(st, (OBJ,), cards=cards) == "vectorized"
+    assert choose_group_by_agg(_st(199_999, **dense), (I64,),
+                               cards=cards) == "torch"
+
+
+# repro's decision table, with its names mapped to the port's; both
+# sides lower these value dtypes (repro lowers int64/float64 only under
+# jax_enable_x64, the port always: the north star's int64 rule)
+_PORT_NAME = {"sharded": "partitioned", "jax": "torch"}
+_GRID_DTYPES = [(np.dtype(np.int32),), (np.dtype(np.float32),),
+                (np.dtype(np.int8), np.dtype(np.float32)),
+                (np.dtype(np.uint8),), (OBJ,), (np.dtype(np.int32), OBJ)]
+
+
+def _grid():
+    for n in (64, 65, 99_999, 100_000, 199_999, 200_000, 6_001_215):
+        for kinds in ((), ("i",), ("u",), ("f",), ("i", "i")):
+            for bounds in (None, (0, n), (-5, 4 * n + 1018),
+                           (-5, 4 * n + 1019), (0, 10**12)):
+                kw = dict(key_kinds=kinds)
+                if bounds is not None and kinds in (("i",), ("u",)):
+                    lo, hi = bounds
+                    kw.update(int_key_lo=lo, int_key_hi=hi,
+                              int_key_span=hi - lo + 1)
+                yield _st(n, **kw)
+
+
+@pytest.mark.parametrize("cards", [1, 8])
+@pytest.mark.parametrize("dtypes", _GRID_DTYPES, ids=str)
+def test_group_by_agg_table_matches_repro(cards, dtypes):
+    from repro.exec import auto as jauto
+    for st in _grid():
+        jst = jstats.TableStats(**dataclasses.asdict(st))
+        want = jauto.choose_group_by_agg(
+            jst, dtypes, n_devices=cards, sharded_available=True,
+            jax_available=True)
+        got = choose_group_by_agg(st, dtypes, cards=cards)
+        assert got == _PORT_NAME.get(want, want), (st, dtypes)
+
+
 # ---------------------------------------------------------------------------
 # the backend on the CPU
 # ---------------------------------------------------------------------------
@@ -99,7 +156,7 @@ CPU = TorchAutoBackend(device="cpu")
 
 def test_cache_token_is_pinned():
     assert CPU.cache_token() == (
-        "torch_auto[v1;tiny=64;shard=200000;device_rows=100000;"
+        "torch_auto[v2;tiny=64;shard=200000;device_rows=100000;"
         "torch[cpu],partitioned[cpu;partitions=1]]")
 
 
@@ -154,6 +211,26 @@ def test_group_by_routes_and_matches_reference(monkeypatch, device_rows,
         assert got[c][0].tobytes() == ref[c][0].tobytes()
     ok = ref["s"][1]
     np.testing.assert_allclose(got["s"][0][ok], ref["s"][0][ok], rtol=1e-9)
+
+
+def test_group_by_routes_to_partitioned_over_several_cards(monkeypatch):
+    """With the partitioned delegate over 4 cards, a large dense-key
+    GROUP BY takes the partitioned row and matches reference."""
+    monkeypatch.setattr(torch_auto, "SHARD_ROWS", 100)
+    auto = TorchAutoBackend(device="cpu")
+    monkeypatch.setitem(auto._delegates, "partitioned", PartitionedBackend(
+        device="cpu", devices=["cpu"] * 4))
+    cols = random_table(400, 4)._to_cols()
+    specs = (("sum", "v32", "s"), ("min", "f", "lo"), ("count", "f", "n"))
+    with tracing() as rec:
+        got = auto.group_by_agg(cols, ["ki"], specs)
+    assert [e["choice"] for e in _events(rec)] == ["partitioned"]
+    assert [s.attrs["cards"] for s in rec.spans("kernel")
+            if s.attrs.get("op") == "partitioned.partial_agg"] == [4]
+    ref = REF.group_by_agg(cols, ["ki"], specs)
+    assert list(got) == list(ref)
+    for c in got:
+        assert got[c][0].tobytes() == ref[c][0].tobytes(), c
 
 
 def test_planner_stats_skip_collection(monkeypatch):

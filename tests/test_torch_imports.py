@@ -49,7 +49,8 @@ def test_the_scan_sees_the_package():
             "repro_torch.kernels.flash_attention.ops",
             "repro_torch.kernels.rglru.ops",
             "repro_torch.kernels.mlstm.ops", "repro_torch.kernels.mlstm.kernel",
-            "repro_torch.models.xlstm"} <= set(MODULES)
+            "repro_torch.models.xlstm",
+            "repro_torch.configs.paper_pipeline"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("path", FILES,

@@ -2,7 +2,8 @@
 
 ``PartitionedBackend(device="cpu", partitions=p)`` runs the whole card
 path on the CPU: key coding, the partition layout (``p`` key ranges,
-probed one after another; ``p = 1`` is one card's identity layout), the
+probed one after another; ``p = 1`` is one card's identity layout; with
+``devices=["cpu"] * k``, ``k`` cards, each partition on its own), the
 table build and probe (the hash-probe kernels' plain versions) or the
 sort-and-search hash mode, and the ragged emission. Its joins are held
 against ``repro``'s ``reference`` oracle and ``vectorized`` backend on
@@ -33,7 +34,24 @@ from repro_torch.exec.vectorized import (  # noqa: E402
 REF = ReferenceBackend()
 VEC = VectorizedBackend()
 PORT_VEC = PortVectorized()
-PARTITIONS = (1, 3, 8)
+# one card with 1, 3 or 8 partitions, or a list of 2, 3 or 8 cards (one
+# partition each, every card the CPU): the join's layout is the same,
+# each partition probed on its own card
+PARTITIONS = (1, 3, 8, ("cpu",) * 2, ("cpu",) * 3, ("cpu",) * 8)
+
+
+def _layout_id(layout) -> str:
+    return str(layout) if isinstance(layout, int) else f"{len(layout)}cards"
+
+
+def make(layout) -> PartitionedBackend:
+    if isinstance(layout, int):
+        return PartitionedBackend(device="cpu", partitions=layout)
+    return PartitionedBackend(device="cpu", devices=list(layout))
+
+
+def n_parts(layout) -> int:
+    return layout if isinstance(layout, int) else len(layout)
 KEYSETS = (["ki"], ["ks"], ["f"], ["ki", "ks"], ["ks", "f"])
 HOWS = ("inner", "left")
 
@@ -58,7 +76,7 @@ def assert_same(got, want):
 
 def check(left, right, on, how, partitions, *, left_mask=None,
           right_mask=None, yardsticks=(REF, VEC)):
-    be = PartitionedBackend(device="cpu", partitions=partitions)
+    be = make(partitions)
     if left_mask is None and right_mask is None:
         got = be.hash_join(left, right, on, how)
         wants = [b.hash_join(left, right, on, how) for b in yardsticks]
@@ -93,7 +111,7 @@ def probes(monkeypatch):
 # the differential fixtures of tests/test_exec_backends.py
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("partitions", PARTITIONS)
+@pytest.mark.parametrize("partitions", PARTITIONS, ids=_layout_id)
 @pytest.mark.parametrize("how", HOWS)
 @pytest.mark.parametrize("keys", KEYSETS, ids="+".join)
 def test_random_tables_match(partitions, how, keys):
@@ -105,7 +123,7 @@ def test_random_tables_match(partitions, how, keys):
         check(left, right, keys, how, partitions)
 
 
-@pytest.mark.parametrize("partitions", PARTITIONS)
+@pytest.mark.parametrize("partitions", PARTITIONS, ids=_layout_id)
 @pytest.mark.parametrize("how", HOWS)
 @pytest.mark.parametrize("keys", KEYSETS, ids="+".join)
 def test_random_tables_with_masks_match(partitions, how, keys):
@@ -163,7 +181,7 @@ def _int_tables(case, seed, n_left=300, n_right=120):
 NARROW = {"int8"}
 
 
-@pytest.mark.parametrize("partitions", PARTITIONS)
+@pytest.mark.parametrize("partitions", PARTITIONS, ids=_layout_id)
 @pytest.mark.parametrize("how", HOWS)
 @pytest.mark.parametrize("case", sorted(INT_CASES))
 def test_integer_keys_match(partitions, how, case):
@@ -185,20 +203,20 @@ def test_port_vectorized_rebases_narrow_keys_in_int64(how):
                 REF.hash_join(left, right, ["k"], how))
 
 
-@pytest.mark.parametrize("partitions", PARTITIONS)
+@pytest.mark.parametrize("partitions", PARTITIONS, ids=_layout_id)
 def test_table_mode_probes_through_the_kernels(partitions, probes):
     """A dense integer key takes table mode: the plain probe for a join,
     the filter-fused probe for an inner join with a left mask, and the
     plain probe for a left join with a left mask (it prefilters)."""
     left, right = _int_tables("int64_dense", seed=2)
+    p = n_parts(partitions)
     check(left, right, ["k"], "inner", partitions)
-    assert probes == {"hash_probe": partitions, "masked_hash_probe": 0}
+    assert probes == {"hash_probe": p, "masked_hash_probe": 0}
     lm = np.random.default_rng(3).random(300) < 0.5
     check(left, right, ["k"], "inner", partitions, left_mask=lm)
-    assert probes["masked_hash_probe"] == partitions
+    assert probes["masked_hash_probe"] == p
     check(left, right, ["k"], "left", partitions, left_mask=lm)
-    assert probes == {"hash_probe": 2 * partitions,
-                      "masked_hash_probe": partitions}
+    assert probes == {"hash_probe": 2 * p, "masked_hash_probe": p}
 
 
 @pytest.mark.parametrize("case", ["int64_wide", "int64_past_int32"])
@@ -246,7 +264,7 @@ def test_partition_layout_keeps_row_order_per_range():
 # empty sides, no valid key, construction
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("partitions", PARTITIONS)
+@pytest.mark.parametrize("partitions", PARTITIONS, ids=_layout_id)
 @pytest.mark.parametrize("how", HOWS)
 @pytest.mark.parametrize("side", ["left", "right", "both"])
 def test_empty_sides(partitions, how, side):
@@ -269,6 +287,25 @@ def test_cache_token_names_device_and_partitions():
             == "partitioned[cpu;partitions=3]")
     assert (PartitionedBackend(device="cpu").cache_token()
             != PartitionedBackend(device="cpu", partitions=2).cache_token())
+    # several cards: the token names every card
+    assert (make(("cpu",) * 3).cache_token()
+            == "partitioned[cpu,cpu,cpu;partitions=3]")
+
+
+def test_cards_and_partitions():
+    one = PartitionedBackend(device="cpu")
+    assert (one.devices, one.cards, one.partitions) == (
+        (torch.device("cpu"),), 1, 1)
+    four = PartitionedBackend(device="cpu", devices=["cpu"] * 4)
+    assert (four.cards, four.partitions, four.device) == (
+        4, 4, torch.device("cpu"))
+    six = PartitionedBackend(devices=["cpu"] * 3, partitions=6)
+    assert (six.cards, six.partitions) == (3, 6)
+    assert [six._card(p) for p in range(6)] == [torch.device("cpu")] * 6
+    with pytest.raises(ValueError, match="at least one card"):
+        PartitionedBackend(devices=[])
+    with pytest.raises((ValueError, BackendUnavailable)):
+        PartitionedBackend(devices=["cpu", "cuda:0"])
 
 
 @pytest.mark.parametrize("partitions", [0, 256])

@@ -15,6 +15,11 @@ the CPU and are held against the port's ``vectorized`` result:
 integers, strings and validity exact, float SUM at rtol 1e-9 (the
 summation-order carve-out). Optimized plans are held against
 unoptimized ones the same way.
+
+With ``partitioned`` registered over 8 CPU cards (in process, as
+``repro``'s forced 8-device host mesh), the ``partial_agg`` pass
+rewrites as ``repro``'s does on its mesh, and the rewritten plans
+publish what the unoptimized ones do.
 """
 import numpy as np
 import pytest
@@ -39,6 +44,7 @@ from repro_torch.exec.partitioned import PartitionedBackend  # noqa: E402
 from repro_torch.exec.stats import TableStats  # noqa: E402
 from repro_torch.exec.torch_auto import TorchAutoBackend  # noqa: E402
 from repro_torch.exec.vectorized import VectorizedBackend  # noqa: E402
+from repro_torch.obs import tracing  # noqa: E402
 from repro_torch.optimizer import optimize, passes  # noqa: E402
 
 PASSES = ("filter_pushdown", "join_reorder", "column_pruning",
@@ -271,3 +277,123 @@ def test_partial_agg_is_a_noop_on_one_card(clients):
                   ("partial_agg",))
     assert "strategy=partial" not in pl.steps[0].logical.describe()
     assert not any("partial_agg" in n for n in pl.steps[0].provenance)
+
+
+# ---------------------------------------------------------------------------
+# partial aggregation over several cards (8 CPU "cards", in process)
+# ---------------------------------------------------------------------------
+
+def _eight_cards():
+    return PartitionedBackend(device="cpu", devices=["cpu"] * 8)
+
+
+@pytest.fixture
+def eight_cards():
+    """``partitioned`` registered over 8 CPU cards, as ``repro``'s forced
+    8-device host mesh; the default factory is registered again after."""
+    exec_backends.register("partitioned", _eight_cards)
+    try:
+        yield exec_backends.get_backend("partitioned")
+    finally:
+        exec_backends.register("partitioned",
+                               exec_backends._partitioned_factory)
+
+
+def test_register_again_replaces_a_built_instance(eight_cards):
+    """``register`` drops the instance built from the earlier factory:
+    the pass and ``Aggregate._exec`` then see the new one."""
+    assert eight_cards.cards == 8 and passes._mesh_devices() == 8
+    exec_backends.register(
+        "partitioned",
+        lambda: PartitionedBackend(device="cpu", devices=["cpu"] * 2))
+    again = exec_backends.get_backend("partitioned")
+    assert again is not eight_cards and again.cards == 2
+    assert passes._mesh_devices() == 2
+
+
+def _group_by_plan():
+    """One GROUP BY over an int key, planned as if its source held
+    400,000 rows (past the shard threshold)."""
+    Src = S.Schema.of("Src", k=int, v=int)
+    Agg = S.Schema.of("Agg", k=int, v_sum=int, v_min=int, v_max=int,
+                      n=int, v_mean=float)
+    p = Pipeline("gb")
+    p.source("src", Src)
+    p.sql(name="out", inputs={"s": "src"}, input_schemas={"s": Src},
+          output_schema=Agg, group_keys=["k"],
+          agg_specs=[("sum", "v"), ("min", "v"), ("max", "v"),
+                     ("count", "v", "n"), ("mean", "v")])
+    return plan(p, table_stats={"src": TableStats(n_rows=400_000,
+                                                  key_kinds=("i",))})
+
+
+def test_partial_agg_rewrites_over_eight_cards(eight_cards):
+    """``repro``'s ``_PARTIAL_AGG_BODY`` (test_group_by_agg.py) on the
+    port: the rewrite fires, moves the cache material, and the optimized
+    plan's output fingerprints exactly as the unoptimized plan's."""
+    pl = _group_by_plan()
+    opt = optimize(pl)
+    tree = opt.steps[0].logical
+    assert "strategy=partial" in tree.describe(), tree.describe()
+    assert any("partial_agg" in m for m in opt.steps[0].provenance)
+    assert "devices=8" in " ".join(opt.steps[0].provenance)
+    assert opt.steps[0].cache_material() != pl.steps[0].cache_material()
+
+    r = np.random.default_rng(0)
+    n = 400_000
+    t = Table({"k": r.integers(0, 4096, n).astype(np.int32),
+               "v": r.integers(-1000, 1000, n).astype(np.int32)})
+    with use_backend(TorchAutoBackend(device="cpu")):
+        a = pl.steps[0].execute({"src": t})
+        b = opt.steps[0].execute({"src": t})
+    assert a.fingerprint() == b.fingerprint()
+
+
+def test_a_second_layout_misses_the_cache(eight_cards):
+    """A rewritten step runs its aggregate on the registered
+    ``partitioned`` backend, so its cache key carries that backend's
+    layout: re-registered over another partition count, with the same
+    cards (the same plan and provenance), the step runs again; a rerun
+    on one layout is a hit."""
+    opt = optimize(_group_by_plan())
+    assert "strategy=partial" in opt.steps[0].logical.describe()
+    r = np.random.default_rng(1)
+    c = Client()
+    c.write_source_table("main", "src", Table(
+        {"k": r.integers(0, 64, 1000).astype(np.int64),
+         "v": r.integers(-9, 9, 1000).astype(np.int64)}))
+    with use_backend(TorchAutoBackend(device="cpu")):
+        first = c.run(opt, "main")
+        hit = c.run(opt, "main")
+        exec_backends.register("partitioned", lambda: PartitionedBackend(
+            device="cpu", devices=["cpu"] * 8, partitions=3))
+        miss = c.run(opt, "main")
+    assert first.executed == ("out",) and hit.cached == ("out",)
+    assert miss.executed == ("out",), miss
+
+
+ORDER_LINES = ("SELECT l_orderkey, SUM(l_quantity) AS qty, "
+               "COUNT(l_quantity) AS n_lines, MIN(l_extendedprice) AS lo, "
+               "MAX(l_extendedprice) AS hi, SUM(l_extendedprice) AS revenue "
+               "FROM lineitem {where}GROUP BY l_orderkey")
+
+
+@pytest.mark.parametrize("where", ["", "WHERE l_discount >= 0.05 "])
+def test_partial_agg_query_matches_unoptimized(clients, low_thresholds,
+                                               eight_cards, where):
+    """``Client.sql`` with the default passes on 8 cards: Q18's
+    ``order_lines`` GROUP BY runs as per-partition partials, and the
+    result equals the unoptimized plan's and ``vectorized``'s (float
+    SUM at rtol 1e-9)."""
+    _, pc = clients
+    query = ORDER_LINES.format(where=where)
+    be = TorchAutoBackend(device="cpu")
+    with tracing() as rec:
+        fast = _port(pc, query, be, optimizer_passes=None)
+    assert any("partial_agg" in n for n in fast.plan.steps[0].provenance)
+    assert "strategy=partial" in fast.plan.steps[0].logical.describe()
+    assert [s.attrs["cards"] for s in rec.spans("kernel")
+            if s.attrs.get("op") == "partitioned.partial_agg"] == [8]
+    slow = _port(pc, query, be, optimizer_passes=())
+    assert_tables_equal(fast.table, slow.table)
+    assert_tables_equal(fast.table, _port(pc, query).table)
