@@ -129,7 +129,39 @@ before the result line):
       (the kernel path) against as many teacher-forced ``decode_step``s
       (kernel-free), float32 activations over the same weights: argmax
       equal, logits within ``XLSTM_PREFILL_DECODE_RTOL``;
-   e. ``ServeLoop`` with the launcher's defaults: decode step ms.
+   e. ``ServeLoop`` with the launcher's defaults: decode step ms;
+   phases 6 and 7 serve under ``torch.no_grad()``, so they build no
+   autograd graph;
+8. training, xlstm-350m through the mLSTM kernel:
+   a. each model kernel's gradient wrapper (its ``autograd.Function``:
+      the kernel forward, a plain backward) against autograd of its plain
+      version on the same card tensors, the gradients of ``(out *
+      g).sum()`` for a fixed random ``g`` with respect to every input,
+      within ``GRAD_REL``, with the kernel launched once: the mLSTM
+      (bf16, B*H = 16, S = 512, hd = 256), flash attention (bf16, S =
+      1024: hd 256, window 2048, one kv head; hd 128, full causal, GQA)
+      and the RG-LRU scan (float32, B = 4, S = 1024, W = 4096);
+   b. ``repro_torch.launch.train.main(["--steps", "30", "--kill-at",
+      "12"])`` on the card at the smoke config, with the launcher's own
+      checks (the loss finite and lower, the branch log);
+   c. the full config, weights drawn on the card from ``--seed``,
+      ``TRAIN_BATCH`` x ``TRAIN_LEN`` batches of a ``markov_corpus``
+      pipeline: ``TRAIN_STEPS`` steps with a checkpoint every
+      ``TRAIN_CKPT`` through ``CheckpointManager`` (12 mLSTM launches a
+      step), then ``resilient_train`` with a ``FailureInjector`` killing
+      step ``TRAIN_KILL_AT``: the final losses within
+      ``TRAIN_RESUME_TOL``, whether the two runs are bitwise equal, every
+      published checkpoint commit holding all four tables, every
+      gradient finite and non-zero; step time, tokens/s, peak memory,
+      and the device profile of one step at ``TRAIN_PROFILE_LEN``;
+   d. one step's loss and the gradients of ``embed``, an mLSTM layer's
+      ``wq`` and ``w_if`` and an sLSTM layer's ``w_in`` and ``r`` through
+      the kernel against the same step with ``models.xlstm.mlstm``
+      patched, in this script alone, to ``repro``'s plain chunk form,
+      float32 activations over the run's initial weights: the loss
+      within ``TRAIN_LOSS_RTOL``, each gradient within the larger of
+      ``TRAIN_GRAD_RTOL`` and twice its own spread under a
+      ``TRAIN_PERTURB`` perturbation of the weights.
 
 The last two lines of standard output are one JSON object of the
 kernels' numbers, then ``{"ok": true, "device": {...}}``.
@@ -228,6 +260,59 @@ MLSTM_REL = 1e-5
 # plain chunk on one token), float32 activations, both float32 all
 # through: max|prefill - decode| / max|decode| of the last logits.
 XLSTM_PREFILL_DECODE_RTOL = 1e-3
+# Phase 8, training. Each kernel's autograd.Function (the kernel forward,
+# a plain backward) against autograd of the plain version, on the same
+# card tensors, as max|function - plain| / max|plain| per input's
+# gradient, by the gradient's dtype. bfloat16: both sides compute the
+# gradient in float32 and round it once to the input's dtype, so they may
+# differ by a bfloat16 step (2^-8 of the value, at most 3.9e-3 of the max)
+# plus their float32 differences: flash's backward takes the kernel's
+# bfloat16 output for the softmax's row sums where the plain version's
+# autograd has its float32 output (2^-9 relative). float32: the mLSTM's
+# two algebras (chunk-parallel recompute, sequential oracle) differ in
+# summation order as their forwards do (5.5e-6 of max|h|, PERF.md), over
+# sums of S terms; the RG-LRU's Function recomputes with the very
+# operations of the plain version, so it may differ only by the order in
+# which autograd adds a step's two contributions.
+GRAD_REL = {"bfloat16": 2e-2, "float32": 1e-4}
+GRAD_MLSTM = dict(BH=16, S=512, hd=256, dtype="bfloat16", gates="paper")
+GRAD_FLASH = [dict(B=1, H=16, K=1, S=1024, hd=256, window=2048),
+              dict(B=1, H=24, K=8, S=1024, hd=128, window=None)]
+GRAD_RGLRU = dict(B=4, S=1024, W=4096)
+# 8c: xlstm-350m at full width, B x S tokens a step (the mLSTM at B*H =
+# 16, S = 512), TRAIN_STEPS steps with a checkpoint every TRAIN_CKPT
+# steps, and a second run killed at TRAIN_KILL_AT
+TRAIN_BATCH, TRAIN_LEN = 4, 512
+TRAIN_STEPS, TRAIN_CKPT, TRAIN_KILL_AT = 6, 2, 3
+TRAIN_PATH = f"xlstm_train_{TRAIN_BATCH}x{TRAIN_LEN}_{TRAIN_STEPS}_steps"
+TRAIN_RESUME_TOL = 1e-4     # |loss_A - loss_B|, repro's example's check
+# the device profile of one step is taken at TRAIN_PROFILE_LEN tokens a
+# sequence: at TRAIN_LEN a step issues ~467,000 device ops, whose trace
+# takes ~97 s to read (NVIDIA H100 80GB HBM3, 700.00 W)
+TRAIN_PROFILE_LEN = 128
+# 8d: one step through the kernel against the same step through the
+# plain chunk form of repro's model (chunk 256), float32 activations over
+# the run's initial weights (drawn from --seed): the two mLSTM forms agree
+# to ~1e-5 of max|h| per layer (7a), and the step's loss is a mean over
+# 2048 tokens, held at 1e-5 of itself. The gradients, each held as
+# max|kernel - plain| / max|plain|: the loss's barrier rounds the
+# cotangent entering the model to bfloat16 (as repro's does), so an
+# element whose two float32 cotangents straddle a rounding boundary moves
+# by a bfloat16 step, 2^-8 = 3.9e-3 of itself, and carries that through
+# 24 layers back: TRAIN_GRAD_RTOL. But at this depth and length float32
+# does not pin the gradient that closely: a relative perturbation of
+# TRAIN_PERTURB of every weight moves the gradients by 5.5-18% at the
+# initial weights and by 17.5-30% after 6 steps at lr 3e-3, where the
+# two plain forms (chunk and two-pass) differ from each other by 10-24%
+# (examples/grad_spread.py; NVIDIA H100 80GB HBM3, 700.00 W; the
+# gradient norm is 151 at the initial weights, clipped to 1). So the
+# phase measures that spread, the gradients of the kernel path at the
+# perturbed weights against its own, and holds each gradient at the
+# larger of TRAIN_GRAD_RTOL and twice the spread: a difference below
+# that cannot be told from float32 rounding, and a wrong backward (a
+# gate's gradient lost, say) is off by ~100%.
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-2
+TRAIN_PERTURB = 1e-6
 
 
 def log(msg: str) -> None:
@@ -1807,6 +1892,299 @@ def phase_xlstm(torch, np, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: training
+# ---------------------------------------------------------------------------
+
+def grad_compare(torch, label: str, fn, plain, inputs, wrapper) -> dict:
+    """8a: the gradients of ``(out * g).sum()`` with respect to every
+    input, once through ``fn`` (the kernel's autograd.Function) and once
+    through autograd of ``plain``, on the same card tensors; ``wrapper``
+    must count one launch for ``fn``'s forward and none for its
+    backward."""
+    inputs = [t.detach().requires_grad_(True) for t in inputs]
+    for _ in range(2):       # the second call is timed: fwd, then bwd
+        before = wrapper.launches
+        t0 = time.perf_counter()
+        out = fn(*inputs)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        expect(out.grad_fn is not None, label, "the kernel's output has "
+               "no grad_fn: its gradient would be lost")
+        g = torch.randn(out.shape, generator=torch.Generator(device=DEVICE)
+                        .manual_seed(5), device=DEVICE, dtype=out.dtype)
+        t2 = time.perf_counter()
+        got = torch.autograd.grad((out * g).sum(), inputs)
+        torch.cuda.synchronize()
+        fwd_s, bwd_s = t1 - t0, time.perf_counter() - t2
+        launches = wrapper.launches - before
+    t0 = time.perf_counter()
+    want = torch.autograd.grad((plain(*inputs) * g).sum(), inputs)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    errs = []
+    for x, a, b in zip(inputs, got, want):
+        expect(a.dtype == b.dtype == x.dtype and a.shape == x.shape, label,
+               "gradient dtype or shape", a.dtype, b.dtype, x.dtype)
+        expect(bool(torch.isfinite(a).all()), label, "non-finite gradient")
+        dt = str(x.dtype).removeprefix("torch.")
+        errs.append((dt, rel_err(torch, a, b)))
+        expect(errs[-1][1] <= GRAD_REL[dt], label, "gradient differs from "
+               "the plain version's", errs[-1], GRAD_REL[dt])
+    expect(launches == 1, label, "kernel launches", launches)
+    row = {"op": label, "launches": launches, "grad_rel_err": errs,
+           "fwd_s": fwd_s, "bwd_s": bwd_s, "plain_fwd_bwd_s": plain_s}
+    log("grad " + json.dumps(row))
+    return row
+
+
+def phase_kernel_grads(torch) -> list:
+    """8a: each model kernel's gradient wrapper against autograd of its
+    plain version."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.mlstm import ops as mops
+    from repro_torch.kernels.mlstm.ref import mlstm_ref
+    from repro_torch.kernels.rglru import ops as rops
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(8)
+    rows = [grad_compare(torch, f"mlstm_chunkwise {json.dumps(GRAD_MLSTM)}",
+                         mops.mlstm, mlstm_ref,
+                         mlstm_inputs(torch, GRAD_MLSTM, g), mops.mlstm)]
+    for case in GRAD_FLASH:
+        B, H, K, S, hd = (case[k] for k in ("B", "H", "K", "S", "hd"))
+        qkv = [torch.randn(B, n, S, hd, generator=g, device=DEVICE,
+                           dtype=torch.bfloat16) for n in (H, K, K)]
+        kw = dict(causal=True, window=case["window"])
+        rows.append(grad_compare(
+            torch, f"flash_attention {json.dumps(case)}",
+            lambda q, k, v: fops.flash_attention(q, k, v, **kw),
+            lambda q, k, v: flash_attention_ref(q, k, v, **kw), qkv,
+            fops.flash_attention))
+    B, S, W = (GRAD_RGLRU[k] for k in ("B", "S", "W"))
+    a = torch.sigmoid(torch.randn(B, S, W, generator=g, device=DEVICE))
+    b = torch.randn(B, S, W, generator=g, device=DEVICE)
+    rows.append(grad_compare(torch, f"rglru_scan {json.dumps(GRAD_RGLRU)}",
+                             rops.rglru_scan, rglru_scan_ref, [a, b],
+                             rops.rglru_scan))
+    return rows
+
+
+def phase_train_launcher(torch) -> dict:
+    """8b: ``repro_torch.launch.train`` on the card at the smoke config,
+    killed at step 12 and restarted, with its own checks."""
+    from repro_torch.launch import train as launch_train
+    reset_model_launches()
+    t0 = time.perf_counter()
+    rc = launch_train.main(["--steps", "30", "--kill-at", "12"])
+    torch.cuda.synchronize()
+    launches = read_model_launches()
+    expect(rc == 0, "the train launcher returned", rc)
+    expect(launches["mlstm_chunkwise"] > 0, "the train launcher ran no "
+           "mLSTM kernel", launches)
+    log(f"train launcher: rc={rc} wall_s={time.perf_counter() - t0:.3f} "
+        f"launches {json.dumps(launches)}")
+    return launches
+
+
+def plain_mlstm(torch, X):
+    """The mLSTM through repro's plain chunk form (``_mlstm_chunk`` over
+    chunks of 256, the state carried), with the wrapper's signature: the
+    kernel-free path of 8d."""
+    def mlstm(q, k, v, log_i, log_f, *, chunk: int = 256):
+        BH, S, hd = q.shape
+        C = torch.zeros(1, BH, hd, hd, device=q.device)
+        n = torch.zeros(1, BH, hd, device=q.device)
+        m = torch.zeros(1, BH, device=q.device)
+        outs = []
+        for lo in range(0, S, chunk):
+            part = [t[None, :, lo:lo + chunk] for t in (q, k, v, log_i,
+                                                        log_f)]
+            out, C, n, m = X._mlstm_chunk(*part, C, n, m)
+            outs.append(out[0])
+        return torch.cat(outs, dim=1)
+    return mlstm
+
+
+def train_setup(torch, np, cfg, seed: int):
+    """The corpus and pipeline factory of 8c: a Markov corpus over the
+    full vocabulary, TRAIN_BATCH x TRAIN_LEN batches."""
+    from repro_torch.data.pipeline import DataPipeline, TokenDataset
+    from repro_torch.data.synthetic import markov_corpus
+    B, S = TRAIN_BATCH, TRAIN_LEN
+    tokens = markov_corpus(B * S * 32, cfg.vocab_size, seed=seed)
+    ds = TokenDataset(tokens, shard_tokens=B * S * 2)
+    return lambda: DataPipeline(ds, batch=B, seq_len=S, seed=seed)
+
+
+def published_complete(ckpt) -> int:
+    """Every committed checkpoint run's commit holds all four tables;
+    returns how many there are."""
+    published = [r for r in ckpt.registry.runs() if r.status == "committed"]
+    expect(published, "no checkpoint was published")
+    for r in published:
+        tables = set(ckpt.catalog.commit(r.final_commit).tables)
+        expect({"params", "opt_state", "data_state", "metrics"} <= tables,
+               "torn checkpoint", r.run_id, sorted(tables))
+    return len(published)
+
+
+def phase_train(torch, np, seed: int) -> dict:
+    """8c and 8d: xlstm-350m at full width, trained through the mLSTM
+    kernel with transactional checkpoints, killed and resumed; then one
+    step through the kernel against the same step without it."""
+    import dataclasses
+    from repro_torch.checkpoints.checkpointing import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.catalog import Catalog
+    from repro_torch.distributed.fault_tolerance import (FailureInjector,
+                                                         resilient_train)
+    from repro_torch.models import xlstm as X
+    from repro_torch.models.model import Model
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train_loop import (TrainConfig, make_grad_fn,
+                                                 make_train_step, train)
+    cfg = get_config(XLSTM)
+    pipeline = train_setup(torch, np, cfg, seed)
+    opt = AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+    tc = TrainConfig(steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT, seed=seed,
+                     device=DEVICE)
+    n_mlstm = sum(k == "mlstm" for k in cfg.block_pattern) \
+        * cfg.n_scan_blocks
+    out = {"batch": TRAIN_BATCH, "seq_len": TRAIN_LEN}
+
+    # 8c, run A: uninterrupted, a checkpoint every TRAIN_CKPT steps
+    torch.cuda.reset_peak_memory_stats()
+    reset_model_launches()
+    ckpt_a = CheckpointManager(Catalog())
+    t0 = time.perf_counter()
+    res_a = train(cfg, pipeline=pipeline(), opt_cfg=opt, tc=tc, ckpt=ckpt_a)
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    launches = read_model_launches()
+    hist = res_a["history"]
+    steps = [h["step_time_s"] for h in hist]
+    warm = steps[1:]
+    toks = TRAIN_BATCH * TRAIN_LEN
+    out["run_a"] = {
+        "wall_s": wall_a, "step_s": steps, "losses": [h["loss"] for h in
+                                                      hist],
+        "warm_step_s_mean": sum(warm) / len(warm),
+        "tokens_per_s": toks * len(warm) / sum(warm),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches, "published": published_complete(ckpt_a)}
+    log(f"train A: {json.dumps(out['run_a'])}")
+    expect(launches["mlstm_chunkwise"] == n_mlstm * TRAIN_STEPS,
+           "mLSTM launches in run A", launches, n_mlstm * TRAIN_STEPS)
+    expect(launches["flash_attention"] == launches["rglru_scan"] == 0,
+           "xlstm launched flash or RG-LRU", launches)
+    expect(all(np.isfinite(h["loss"]) for h in hist), "non-finite loss")
+    expect(hist[-1]["loss"] < hist[0]["loss"], "loss did not decrease",
+           hist[0]["loss"], hist[-1]["loss"])
+    expect(ckpt_a.latest_step() == TRAIN_STEPS, "run A's last checkpoint",
+           ckpt_a.latest_step())
+    del ckpt_a
+
+    # run B: killed at TRAIN_KILL_AT, restarted from the branch head
+    ckpt_b = CheckpointManager(Catalog())
+    inj = FailureInjector(fail_at=(TRAIN_KILL_AT,))
+    t0 = time.perf_counter()
+    res_b = resilient_train(cfg, pipeline_factory=pipeline, opt_cfg=opt,
+                            tc=tc, ckpt=ckpt_b, injector=inj)
+    torch.cuda.synchronize()
+    loss_a, loss_b = hist[-1]["loss"], res_b["history"][-1]["loss"]
+    bitwise = loss_a == loss_b and all(
+        torch.equal(res_a["params"][k], res_b["params"][k])
+        for k in res_a["params"])
+    out["run_b"] = {
+        "wall_s": time.perf_counter() - t0, "killed_at": sorted(inj._fired),
+        "resumed_from": res_b["history"][0]["step"], "loss_a": loss_a,
+        "loss_b": loss_b, "drift": abs(loss_a - loss_b),
+        "bitwise_equal": bitwise, "published": published_complete(ckpt_b)}
+    log(f"train B: {json.dumps(out['run_b'])}")
+    expect(inj._fired == {TRAIN_KILL_AT}, "the injected kill did not fire")
+    expect(out["run_b"]["resumed_from"] == TRAIN_KILL_AT // TRAIN_CKPT
+           * TRAIN_CKPT, "run B resumed from", out["run_b"]["resumed_from"])
+    expect(abs(loss_a - loss_b) < TRAIN_RESUME_TOL, "resumed loss drifts",
+           loss_a, loss_b)
+    del ckpt_b, res_b
+
+    # one step's gradients: finite and non-zero for every parameter, and
+    # the step's launches and device profile
+    params, batch = res_a["params"], pipeline().next_batch()
+    inputs, targets = (torch.from_numpy(x).to(DEVICE) for x in batch)
+    del res_a
+    grad_fn = make_grad_fn(cfg, tc)
+    reset_model_launches()
+    (loss, _), grads = grad_fn(params, inputs, targets)
+    out["step_launches"] = read_model_launches()
+    expect(out["step_launches"]["mlstm_chunkwise"] == n_mlstm,
+           "mLSTM launches in one forward and backward",
+           out["step_launches"])
+    for name, gr in grads.items():
+        expect(bool(torch.isfinite(gr).all()), "non-finite gradient", name)
+        expect(bool((gr != 0).any()), "all-zero gradient", name)
+    log(f"train grads: {len(grads)} parameters, every gradient finite and "
+        f"non-zero; loss {float(loss):.6f}; launches "
+        f"{json.dumps(out['step_launches'])}")
+    del grads
+    step = make_train_step(cfg, opt, tc)
+    opt_state = adamw_init(params)
+    short = inputs[:, :TRAIN_PROFILE_LEN], targets[:, :TRAIN_PROFILE_LEN]
+    step(params, opt_state, *short)             # warm at the profile's shape
+    out["profile"] = profile_device(
+        torch, f"train step {TRAIN_BATCH}x{TRAIN_PROFILE_LEN}",
+        lambda: step(params, opt_state, *short))
+    del opt_state
+
+    # 8d: one step at the run's initial weights, float32 activations,
+    # through the kernel and through repro's plain chunk form
+    del params
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    p32 = {k: v.detach().float() for k, v in Model(cfg, device=DEVICE)
+           .init_params(gen).state_dict().items()}
+    grad32 = make_grad_fn(cfg32, tc)
+    picks = ["embed", "layers.0.mix.wq", "layers.0.mix.w_if",
+             "layers.1.mix.w_in", "layers.1.mix.r"]
+    reset_model_launches()
+    (l_k, _), g_k = grad32(p32, inputs, targets)
+    expect(read_model_launches()["mlstm_chunkwise"] == n_mlstm,
+           "8d: the kernel path launched", read_model_launches())
+    g_k = {k: g_k[k] for k in picks}
+    gen.manual_seed(seed + 3)
+    _, g_s = grad32({k: v * (1 + TRAIN_PERTURB * torch.randn(
+        v.shape, generator=gen, device=DEVICE)) for k, v in p32.items()},
+        inputs, targets)
+    sensitivity = {k: rel_err(torch, g_s[k], g_k[k]) for k in picks}
+    del g_s
+    kernel_mlstm = X.mlstm
+    X.mlstm = plain_mlstm(torch, X)
+    try:
+        reset_model_launches()
+        (l_p, _), g_p = grad32(p32, inputs, targets)
+        expect(read_model_launches()["mlstm_chunkwise"] == 0,
+               "8d: the plain path launched", read_model_launches())
+    finally:
+        X.mlstm = kernel_mlstm
+    loss_err = abs(float(l_k) - float(l_p)) / abs(float(l_p))
+    grad_errs = {k: rel_err(torch, g_k[k], g_p[k]) for k in picks}
+    out["kernel_vs_plain"] = {"loss_kernel": float(l_k),
+                              "loss_plain": float(l_p),
+                              "loss_rel_err": loss_err,
+                              "grad_rel_err": grad_errs,
+                              "grad_sensitivity": sensitivity}
+    log(f"train kernel vs plain: {json.dumps(out['kernel_vs_plain'])}")
+    expect(loss_err <= TRAIN_LOSS_RTOL, "8d loss", loss_err)
+    for k, e in grad_errs.items():
+        expect(e <= max(TRAIN_GRAD_RTOL, 2 * sensitivity[k]), "8d gradient",
+               k, e, "spread", sensitivity[k])
+    del p32, g_k, g_p
+    torch.cuda.empty_cache()
+    return out
+
+
 def ptxas_kernels(report: str) -> dict:
     """{mangled kernel name: (registers, spill store bytes)} from
     ``nvcc -Xptxas -v`` output."""
@@ -1994,7 +2372,8 @@ def main() -> int:
         with open(os.path.join(args.log_dir, "kernels.jsonl"), "a") as f:
             for row in model_rows:
                 f.write(json.dumps(row) + "\n")
-    model = phase_model(torch, np, args.seed)
+    with torch.no_grad():           # serving: no autograd graph
+        model = phase_model(torch, np, args.seed)
     log(f"model summary: {json.dumps(model)}")
     clock = phase_done("6 (recurrentgemma-9b)", clock)
 
@@ -2004,9 +2383,20 @@ def main() -> int:
         with open(os.path.join(args.log_dir, "kernels.jsonl"), "a") as f:
             for row in mlstm_rows:
                 f.write(json.dumps(row) + "\n")
-    xlstm = phase_xlstm(torch, np, args.seed)
+    with torch.no_grad():
+        xlstm = phase_xlstm(torch, np, args.seed)
     log(f"xlstm summary: {json.dumps(xlstm)}")
-    phase_done("7 (xlstm-350m)", clock)
+    clock = phase_done("7 (xlstm-350m)", clock)
+
+    # 8. training
+    grad_rows = phase_kernel_grads(torch)
+    train_launches = phase_train_launcher(torch)
+    training = phase_train(torch, np, args.seed)
+    log(f"train summary: {json.dumps(training)}")
+    phase_done("8 (training)", clock)
+    grad_launches = {r["op"].split()[0]: 0 for r in grad_rows}
+    for r in grad_rows:
+        grad_launches[r["op"].split()[0]] += r["launches"]
     for name, main_case, krows, main_path in (
             ("flash_attention", FLASH_MAIN, model_rows, "prefill_4x4096"),
             ("rglru_scan", RGLRU_MAIN, model_rows, "prefill_4x4096"),
@@ -2017,7 +2407,10 @@ def main() -> int:
                    "prefill_2304_f32": model["long"]["launches"][name],
                    "serve_loop": model["serve"]["launches"][name],
                    "launcher": model["launcher"][name],
-                   **xlstm_paths(xlstm, name)}
+                   **xlstm_paths(xlstm, name),
+                   "grad_check": grad_launches[name],
+                   "train_launcher": train_launches[name],
+                   TRAIN_PATH: training["run_a"]["launches"][name]}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],

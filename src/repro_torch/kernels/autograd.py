@@ -1,0 +1,36 @@
+"""Gradients through the model kernels, which have no backward kernel.
+
+``repro`` writes only forward kernels in Pallas and trains through XLA
+forms of the same functions. The port does the same: each model
+kernel's wrapper (``flash_attention``, ``mlstm``, ``rglru_scan``) takes,
+when grad mode is on and an input requires a gradient, an
+``autograd.Function`` whose forward is the unchanged kernel launch and
+whose backward is plain PyTorch. Without that, a CUDA call through a
+``ctypes``-bound kernel returns a tensor with no ``grad_fn``, and a loss
+through it would silently give no gradient to anything upstream.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["wants_grad", "recompute_grads"]
+
+
+def wants_grad(*inputs: torch.Tensor) -> bool:
+    """Grad mode is on and some input requires a gradient."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
+
+
+def recompute_grads(plain, ctx, dout) -> tuple:
+    """The gradients of ``plain(*ctx.saved_tensors)`` against ``dout``,
+    for the saved inputs that need one (None for the rest): the forward
+    recomputed through ``plain`` under autograd. ``plain`` returns the
+    output, or a tuple whose first element is it."""
+    inputs = [t.detach().requires_grad_(need) for t, need in
+              zip(ctx.saved_tensors, ctx.needs_input_grad)]
+    with torch.enable_grad():
+        out = plain(*inputs)
+        out = out[0] if isinstance(out, tuple) else out
+        grads = iter(torch.autograd.grad(
+            out, [t for t in inputs if t.requires_grad], dout))
+    return tuple(next(grads) if t.requires_grad else None for t in inputs)

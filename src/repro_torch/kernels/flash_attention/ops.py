@@ -7,9 +7,18 @@ sliding window, output in q's dtype. GQA is folded into the kernel's
 indexing (kv head ``h // (H // K)``), not by repeating k and v. A CUDA
 tensor goes to the kernel or the call raises; there is no fallback.
 
+Gradients: when grad mode is on and q, k or v requires a gradient, a
+CUDA call goes through an ``autograd.Function`` whose forward is the
+same kernel launch and whose backward is plain PyTorch
+(:func:`~repro_torch.kernels.flash_attention.ref.flash_attention_bwd_ref`):
+what ``repro``'s flash backward (``_flash_mha_bwd``) computes,
+recomputing P from the inputs, with the kernel's output for the
+softmax's row correction. Otherwise the call is the bare launch. A CPU
+call runs the plain version, which autograd differentiates as it is.
+
 :func:`flash_attention` carries ``launches``: the number of times it
 launched a kernel, and ``launches_by_kernel``: the same by the kernel's
-name (``kernel.KERNELS``). CPU calls do not count.
+name (``kernel.KERNELS``). CPU calls and backward passes do not count.
 """
 from __future__ import annotations
 
@@ -17,8 +26,10 @@ import threading
 
 import torch
 
+from repro_torch.kernels.autograd import wants_grad
 from repro_torch.kernels.flash_attention import kernel
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                     flash_attention_ref)
 
 __all__ = ["flash_attention"]
 
@@ -38,11 +49,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"inputs lie on several devices: {devices}")
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
+    if wants_grad(q, k, v):
+        return _FlashKernel.apply(q, k, v, causal, window)
+    return _launch(q, k, v, causal, window)
+
+
+def _launch(q, k, v, causal, window) -> torch.Tensor:
     out, name = kernel.flash_attention(q, k, v, causal=causal, window=window)
     with _count_lock:
         flash_attention.launches += 1
         flash_attention.launches_by_kernel[name] += 1
     return out
+
+
+class _FlashKernel(torch.autograd.Function):
+    """The kernel forward; the plain flash backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out = _launch(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.mask = (causal, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        causal, window = ctx.mask
+        dq, dk, dv = flash_attention_bwd_ref(q, k, v, out, dout,
+                                             causal=causal, window=window)
+        return dq, dk, dv, None, None
 
 
 flash_attention.launches = 0

@@ -9,8 +9,18 @@ function does not depend on the chunking, so the kernel walks S in its
 own tiles. A CUDA tensor goes to the kernel or the call raises; there is
 no fallback.
 
+Gradients: the kernel has no backward. When grad mode is on and an
+input requires a gradient, a CUDA call goes through an
+``autograd.Function`` whose forward is the same kernel launch and whose
+backward recomputes h through the plain chunk-parallel form
+(:func:`~repro_torch.kernels.mlstm.ref.mlstm_two_pass_ref`, the kernel's
+own algebra) and takes ``torch.autograd.grad`` of it; ``repro`` trains
+through its XLA chunk in the same way. Otherwise the call is the bare
+launch. A CPU call runs the plain recurrence, which autograd
+differentiates as it is.
+
 :func:`mlstm` carries ``launches``: the number of times it launched its
-kernel. CPU calls do not count.
+kernel. CPU calls and backward recomputes do not count.
 """
 from __future__ import annotations
 
@@ -18,8 +28,9 @@ import threading
 
 import torch
 
+from repro_torch.kernels.autograd import recompute_grads, wants_grad
 from repro_torch.kernels.mlstm import kernel
-from repro_torch.kernels.mlstm.ref import mlstm_ref
+from repro_torch.kernels.mlstm.ref import mlstm_ref, mlstm_two_pass_ref
 
 __all__ = ["mlstm"]
 
@@ -41,10 +52,31 @@ def mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"inputs lie on several devices: {devices}")
     if q.device.type == "cpu":
         return mlstm_ref(q, k, v, log_i, log_f)
+    inputs = (q, k, v, log_i, log_f)
+    if wants_grad(*inputs):
+        return _MlstmKernel.apply(*inputs)
+    return _launch(*inputs)
+
+
+def _launch(q, k, v, log_i, log_f) -> torch.Tensor:
     out = kernel.mlstm_chunkwise(q, k, v, log_i, log_f)
     with _count_lock:
         mlstm.launches += 1
     return out
+
+
+class _MlstmKernel(torch.autograd.Function):
+    """The kernel forward; the backward by recomputing the plain
+    chunk-parallel form under autograd."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, log_i, log_f):
+        ctx.save_for_backward(q, k, v, log_i, log_f)
+        return _launch(q, k, v, log_i, log_f)
+
+    @staticmethod
+    def backward(ctx, dh):
+        return recompute_grads(mlstm_two_pass_ref, ctx, dh)
 
 
 mlstm.launches = 0

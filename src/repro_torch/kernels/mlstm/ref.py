@@ -15,8 +15,12 @@ it, as the oracle of the chunkwise CUDA kernel.
 
 :func:`mlstm_two_pass_ref` is the CUDA kernel's algebra in plain PyTorch
 (each chunk's own state, the sequential combine at the chunk starts, the
-outputs), and :func:`mlstm_ref_states` the recurrence's states at the
-chunk starts; only tests call them.
+outputs): the kernel wrapper's backward recomputes h through it under
+autograd (``ops.py``). :func:`mlstm_ref_states` gives the recurrence's
+states at the chunk starts; only tests call it.
+
+Both are plain differentiable PyTorch: each step's output is kept in a
+list and stacked, so autograd holds no in-place copies.
 """
 from __future__ import annotations
 
@@ -48,8 +52,7 @@ def _sequential(q, k, v, log_i, log_f, chunk: int = 0):
     C = torch.zeros(BH, hd, hd, dtype=torch.float32, device=q.device)
     n = torch.zeros(BH, hd, dtype=torch.float32, device=q.device)
     m = torch.zeros(BH, dtype=torch.float32, device=q.device)
-    out = torch.empty(BH, S, hd, dtype=torch.float32, device=q.device)
-    starts = []
+    outs, starts = [], []
     for t in range(S):
         if chunk and t % chunk == 0:
             starts.append((C, n, m))
@@ -64,10 +67,12 @@ def _sequential(q, k, v, log_i, log_f, chunk: int = 0):
         num = torch.einsum("bde,bd->be", C, q_t)
         den = torch.einsum("bd,bd->b", n, q_t).abs()
         den = torch.maximum(den, torch.exp(-m_new))
-        out[:, t] = num / den[:, None]
+        outs.append(num / den[:, None])
         m = m_new
     states = tuple(torch.stack(x, dim=1) for x in zip(*starts)) if starts \
         else None
+    out = torch.stack(outs, dim=1) if outs else \
+        torch.empty(BH, 0, hd, dtype=torch.float32, device=q.device)
     return out, states
 
 

@@ -7,8 +7,15 @@ W) in and out), plus the initial state of ``repro.models.rglru._lru_scan``:
 the scan. A CUDA tensor goes to the kernel or the call raises; there is
 no fallback.
 
+Gradients: when grad mode is on and ``a`` or ``b`` requires a gradient,
+a CUDA call goes through an ``autograd.Function`` whose forward is the
+same kernel launch and whose backward recomputes h through the plain
+scan under autograd (``kernels/autograd.py``); otherwise it is the bare
+launch. A CPU call runs the plain scan, which autograd differentiates as
+it is.
+
 :func:`rglru_scan` carries ``launches``: the number of times it launched
-its kernel. CPU calls do not count.
+its kernel. CPU calls and backward recomputes do not count.
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ import threading
 
 import torch
 
+from repro_torch.kernels.autograd import recompute_grads, wants_grad
 from repro_torch.kernels.rglru import kernel
 from repro_torch.kernels.rglru.ref import rglru_scan_ref
 
@@ -41,10 +49,30 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"inputs lie on several devices: {devices}")
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b)
+    if wants_grad(a, b):
+        return _RglruKernel.apply(a, b)
+    return _launch(a, b)
+
+
+def _launch(a, b) -> torch.Tensor:
     out = kernel.rglru_scan(a, b)
     with _count_lock:
         rglru_scan.launches += 1
     return out
+
+
+class _RglruKernel(torch.autograd.Function):
+    """The kernel forward; the backward by recomputing the plain scan
+    under autograd."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _launch(a, b)
+
+    @staticmethod
+    def backward(ctx, dh):
+        return recompute_grads(rglru_scan_ref, ctx, dh)
 
 
 rglru_scan.launches = 0

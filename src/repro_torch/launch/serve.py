@@ -8,7 +8,8 @@ freshly initialized params (and an AdamW state) as one checkpoint on
 ``main``, pins the serving replica to the tag ``serving/v0``, loads the
 replica's params from that tag, and serves the requests through
 continuous batching. A checkpoint published to ``main`` later cannot
-change what the replica serves.
+change what the replica serves. Serving builds no autograd graph: the
+model runs under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ class _Client:
         self.store = catalog.store
 
 
+@torch.no_grad()
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", choices=ARCHS, default="xlstm_350m")

@@ -53,8 +53,10 @@ class ParamModule(nn.Module):
     first half of a vector ``a``, the second ``b``), as ``repro``
     initializes that parameter. The tensors are allocated empty (on
     ``"meta"`` they take no memory) and filled by :meth:`init_params`.
-    Serving only: no parameter requires a gradient. ``p["name"]`` and
-    ``"name" in p`` work as on ``repro``'s parameter dicts.
+    Parameters require gradients, as any module's: a serving caller
+    runs the model under ``torch.no_grad()`` so that it builds no graph.
+    ``p["name"]`` and ``"name" in p`` work as on ``repro``'s parameter
+    dicts.
     """
 
     def __init__(self, specs: Mapping[str, tuple], device=None):
@@ -62,8 +64,7 @@ class ParamModule(nn.Module):
         self._inits = {}
         for name, (shape, dtype, init) in specs.items():
             self.register_parameter(name, nn.Parameter(
-                torch.empty(shape, dtype=dtype, device=device),
-                requires_grad=False))
+                torch.empty(shape, dtype=dtype, device=device)))
             self._inits[name] = init
 
     def __getitem__(self, name: str) -> torch.Tensor:

@@ -15,24 +15,42 @@ Entry points, as in ``repro``:
 
 - :meth:`Model.init_params` draws the weights from a ``torch.Generator``
   with ``repro``'s scales;
-- :meth:`Model.forward` is the prefill (``mode="last_logits",
-  return_kv=True`` is the serving prefill);
+- :meth:`Model.forward` is the training forward and the prefill
+  (``mode="last_logits", return_kv=True`` is the serving prefill), with
+  ``repro``'s ``remat`` options;
 - :meth:`Model.init_cache` and :meth:`Model.decode_step` are one token
   against per-layer caches.
 
-Serving only: the parameters take no gradient.
+A call builds an autograd graph when grad mode is on, as any module's
+does: the serving callers (``ServeLoop``, ``launch/serve.py``) run under
+``torch.no_grad()``, the training loop (``training/train_loop.py``) does
+not.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as R
 from repro_torch.models import xlstm as X
 
-__all__ = ["Block", "Model", "unsupported"]
+__all__ = ["Block", "Model", "unsupported", "REMAT"]
+
+REMAT = (None, "full", "dots")
+# the products "dots" saves: repro's dots_with_no_batch_dims_saveable
+# keeps dot_generals without batch dimensions, the products with a weight
+# matrix, which reach aten as mm (a 3-D input folds its leading dims)
+_DOTS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.addmm.default))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
 _ATTN = ("attn", "local")
 # the recurrent mixers: parameter specs, forward, state init
@@ -153,9 +171,8 @@ class Model(L.ParamModule):
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
         return x.float() @ head.float()
 
-    @torch.no_grad()
     def forward(self, tokens: torch.Tensor, *, mode: str = "logits",
-                return_kv: bool = False):
+                return_kv: bool = False, remat: str | None = None):
         """tokens: (B, S) integer -> (output, aux[, kvs]).
 
         ``mode`` is ``"logits"`` (B, S, V), ``"last_logits"`` (B, 1, V),
@@ -164,12 +181,28 @@ class Model(L.ParamModule):
         per layer: the (k, v) of an attention block, each (B, K, S, hd),
         and None for a recurrent block, whose decode state the serving
         loop builds by teacher-forced steps.
+
+        ``remat``, as in ``repro``, when a graph is built: ``"full"``
+        checkpoints each super-block (one repeat of the block pattern)
+        and recomputes it in the backward pass; ``"dots"`` does the same
+        but saves the products with weight matrices; None saves every
+        activation. The remainder layers past the last whole super-block
+        are not rematerialized, as in ``repro``. No mode changes a
+        number.
         """
         if mode not in ("logits", "last_logits", "hidden"):
             raise ValueError(f"unknown mode {mode!r}")
+        if remat not in REMAT:
+            raise ValueError(f"unknown remat {remat!r}; one of {REMAT}")
         x = self._embed(tokens)
         kvs = []
-        for layer in self.layers:
+        P = self.cfg.pattern_len
+        n_scan = self.cfg.n_scan_blocks * P
+        for lo in range(0, n_scan, P):
+            x, kv = self._superblock(self.layers[lo:lo + P], x, return_kv,
+                                     remat)
+            kvs += kv
+        for layer in self.layers[n_scan:]:
             x, kv = layer(x, collect_kv=return_kv)
             kvs.append(kv)
         x = L.rmsnorm(self.final_norm, x, self.cfg.norm_eps)
@@ -179,6 +212,23 @@ class Model(L.ParamModule):
             out = self._logits(x[:, -1:] if mode == "last_logits" else x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return (out, aux, kvs) if return_kv else (out, aux)
+
+    @staticmethod
+    def _superblock(layers, x, collect_kv: bool, remat: str | None):
+        def run(x):
+            kvs = []
+            for layer in layers:
+                x, kv = layer(x, collect_kv=collect_kv)
+                kvs.append(kv)
+            return x, kvs
+
+        if remat is None or not torch.is_grad_enabled():
+            return run(x)
+        context = (functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                     _dots_policy) if remat == "dots"
+                   else ckpt.noop_context_fn)
+        return ckpt.checkpoint(run, x, use_reentrant=False,
+                               context_fn=context)
 
     def init_cache(self, batch: int, max_len: int) -> list[dict]:
         """Per-layer decode caches: a KV ring buffer of ``max_len`` slots
@@ -199,7 +249,6 @@ class Model(L.ParamModule):
                 caches.append({"rec": init(cfg, batch, dev)})
         return caches
 
-    @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, caches: list[dict]):
         """One decode step. tokens: (B, 1) -> (logits (B, 1, V) float32,
         new caches). KV caches are updated in place."""

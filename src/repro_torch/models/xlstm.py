@@ -15,7 +15,7 @@ exponential gating with the paper's max-state stabilizer.
   is sequential: a Python loop over S in plain torch (``repro`` scans
   it, and has no Pallas kernel for it). ``repro`` broadcasts the
   recurrent weights over the batch before its scan to keep a gradient
-  sharded; serving takes no gradient, so the port does not.
+  sharded; one card has nothing to shard, so the port does not.
 
 Dtypes follow ``repro``: projections in ``cfg.dtype``, gates, states and
 the recurrences in float32, the mixed output cast back to ``x.dtype``.

@@ -11,7 +11,8 @@ sequence and its entry of the per-layer caches; finished slots are
 refilled from the queue, and prompts are teacher-forced through decode
 steps. As in ``repro``, a refilled slot keeps its predecessor's KV and
 recurrent state, and one cache length serves every slot (ROADMAP Queue 3,
-R6); the port reproduces this to keep parity.
+R6); the port reproduces this to keep parity. A step runs under
+``torch.no_grad()``: serving builds no autograd graph.
 """
 from __future__ import annotations
 
@@ -66,6 +67,7 @@ class ServeLoop:
                 self.tokens[i, 0] = int(req.prompt[0])
                 req._pos = 0  # type: ignore[attr-defined]
 
+    @torch.no_grad()
     def step(self) -> int:
         """One decode step for all active slots; returns #finished."""
         self._fill_slots()

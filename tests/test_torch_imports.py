@@ -50,7 +50,13 @@ def test_the_scan_sees_the_package():
             "repro_torch.kernels.rglru.ops",
             "repro_torch.kernels.mlstm.ops", "repro_torch.kernels.mlstm.kernel",
             "repro_torch.models.xlstm",
-            "repro_torch.configs.paper_pipeline"} <= set(MODULES)
+            "repro_torch.configs.paper_pipeline",
+            "repro_torch.data.pipeline", "repro_torch.data.synthetic",
+            "repro_torch.data.tokenizer", "repro_torch.training.optimizer",
+            "repro_torch.training.train_loop", "repro_torch.kernels.autograd",
+            "repro_torch.distributed", "repro_torch.distributed.fault_tolerance",
+            "repro_torch.launch.train",
+            "repro_torch.examples.transactional_training"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("path", FILES,

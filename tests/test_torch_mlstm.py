@@ -243,7 +243,7 @@ def test_params_follow_repro_shapes_dtypes_and_inits():
             assert tuple(mod[name].shape) == w.shape, name
             assert str(mod[name].dtype).split(".")[1] == str(w.dtype), name
         if "b_if" in want:
-            np.testing.assert_array_equal(mod["b_if"].numpy(),
+            np.testing.assert_array_equal(mod["b_if"].detach().numpy(),
                                           np.asarray(want["b_if"]))
             assert abs(float(mod["w_if"].std()) - 0.01) < 2e-3
         else:

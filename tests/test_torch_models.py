@@ -233,6 +233,7 @@ def _decode_both(jc, jp, model, tokens):
                                        ("phi4_mini_3b", {}),
                                        ("xlstm_350m", XL)],
                          ids=["recurrentgemma", "phi4-mini", "xlstm"])
+@torch.no_grad()            # the model serves: no graph
 def test_forward_float32(arch, over):
     jc, tc, jp, model = _models(arch, {**over, **F32})
     tok = _tokens((2, S), 1)
@@ -270,6 +271,7 @@ def test_forward_float32(arch, over):
                                        ("phi4_mini_3b", {}),
                                        ("xlstm_350m", XL)],
                          ids=["recurrentgemma", "phi4-mini", "xlstm"])
+@torch.no_grad()            # the model serves: no graph
 def test_decode_steps_float32(arch, over):
     jc, tc, jp, model = _models(arch, {**over, **F32}, seed=1)
     tok = _tokens((2, DECODE_STEPS), 2)
@@ -281,6 +283,7 @@ def test_decode_steps_float32(arch, over):
                                        ("phi4_mini_3b", {}),
                                        ("xlstm_350m", XL)],
                          ids=["recurrentgemma", "phi4-mini", "xlstm"])
+@torch.no_grad()            # the model serves: no graph
 def test_bfloat16_config_logits_and_greedy_tokens(arch, over):
     jc, tc, jp, model = _models(arch, over, seed=2)
     assert tc.dtype == tc.param_dtype == "bfloat16"
@@ -324,6 +327,7 @@ def test_params_from_jax_unstacks_layers_in_order():
         + ["rglru", "rglru"]
 
 
+@torch.no_grad()            # the model serves: no graph
 def test_xlstm_forward_crosses_repros_chunk():
     """S = 512: repro scans two chunks of 256 and carries the mLSTM state
     between them; the port's kernel path walks S in its own tiles."""
