@@ -161,7 +161,25 @@ before the result line):
       float32 activations over the run's initial weights: the loss
       within ``TRAIN_LOSS_RTOL``, each gradient within the larger of
       ``TRAIN_GRAD_RTOL`` and twice its own spread under a
-      ``TRAIN_PERTURB`` perturbation of the weights.
+      ``TRAIN_PERTURB`` perturbation of the weights;
+9. concurrent transactional runs (``repro_torch/examples/
+   concurrent_runs.py``; ``repro``'s ``benchmarks/concurrent_publication.py::
+   bench_rebase_reexecution`` and ``examples/concurrent_writers.py`` at SF
+   ``--sf``), each on a fresh ``Client`` whose ``main`` holds the
+   generated ``lineitem`` and an ``l_suppkey`` drawn per TPC-H §4.2.3, on
+   the default backend, every run's verifier holding it at a barrier
+   until all have executed: (a) ``AGENTS`` threads, each a one-node
+   ``Client.run`` grouping by ``l_orderkey`` or ``l_suppkey`` (SUM of
+   ``l_quantity * (i + 1)``, COUNT, MIN and MAX of ``l_extendedprice``):
+   every run commits, ``main`` gains one commit per run, no rebase
+   re-executes a node, and each table equals the node run alone on
+   ``vectorized``, bit for bit; (b) two runs writing one table: one
+   commits, one aborts with its branch kept; (c) (a) with a crash injected
+   at ``txn.commit.pre_merge`` (budget 1): that run is on no commit of
+   ``main``, the rest commit, and ``Catalog.gc`` collects its branch. In
+   each, both segment kernels launch and ``chaos.check_history`` finds no
+   violation; wall seconds, runs per second, CAS attempts and rebases are
+   printed beside the card.
 
 The last two lines of standard output are one JSON object of the
 kernels' numbers, then ``{"ok": true, "device": {...}}``.
@@ -2185,6 +2203,47 @@ def phase_train(torch, np, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: concurrent transactional runs
+# ---------------------------------------------------------------------------
+
+AGENTS = 8          # phase 9's concurrent runs, as in repro's benchmark
+
+
+def phase_concurrent(torch, sf: float, seed: int, card: str) -> dict:
+    """Phase 9: ``examples/concurrent_runs.py``'s three scenarios on the
+    default backend; each must launch both segment kernels. Returns the
+    kernels' launches by scenario."""
+    from repro_torch import exec as exec_backends
+    from repro_torch.examples import concurrent_runs as cr
+
+    expect(exec_backends.active_backend().name == "torch_auto",
+           "the default backend is not torch_auto")
+    t0 = time.perf_counter()
+    lineitem = cr.lineitem_with_suppkey(sf, seed)
+    want = cr.reference(lineitem, [cr.agent_plan(i) for i in range(AGENTS)])
+    log(f"concurrent: lineitem {len(lineitem['l_orderkey'])} rows, "
+        f"{ {k: len(t) for k, t in want.items()} } groups; vectorized "
+        f"references in {time.perf_counter() - t0:.2f} s")
+    launches = {}
+    for path, run in (
+            ("concurrent_a", lambda: cr.disjoint(lineitem, AGENTS,
+                                                 want=want)),
+            ("concurrent_b", lambda: cr.same_table(lineitem, want=want)),
+            ("concurrent_c", lambda: cr.crash_one(lineitem, AGENTS,
+                                                  seed=seed, want=want))):
+        reset_launches()
+        summary = run()
+        torch.cuda.synchronize()
+        launches[path] = read_launches()
+        expect(launches[path]["masked_segment_sum"] > 0
+               and launches[path]["masked_segment_reduce"] > 0,
+               path, "a segment kernel never launched", launches[path])
+        log(f"{path}: {json.dumps(summary)} launches "
+            f"{json.dumps(launches[path])} ({card})")
+    return launches
+
+
 def ptxas_kernels(report: str) -> dict:
     """{mangled kernel name: (registers, spill store bytes)} from
     ``nvcc -Xptxas -v`` output."""
@@ -2323,6 +2382,41 @@ def main() -> int:
     del slice_tables
     clock = phase_done("5b (partial aggregation, paper example)", clock)
 
+    # 6. the model stack
+    del data
+    torch.cuda.empty_cache()
+    model_rows = phase_model_kernels(torch, ptxas)
+    if args.log_dir:
+        with open(os.path.join(args.log_dir, "kernels.jsonl"), "a") as f:
+            for row in model_rows:
+                f.write(json.dumps(row) + "\n")
+    with torch.no_grad():           # serving: no autograd graph
+        model = phase_model(torch, np, args.seed)
+    log(f"model summary: {json.dumps(model)}")
+    clock = phase_done("6 (recurrentgemma-9b)", clock)
+
+    # 7. xlstm-350m
+    mlstm_rows = phase_mlstm_kernels(torch, ptxas)
+    if args.log_dir:
+        with open(os.path.join(args.log_dir, "kernels.jsonl"), "a") as f:
+            for row in mlstm_rows:
+                f.write(json.dumps(row) + "\n")
+    with torch.no_grad():
+        xlstm = phase_xlstm(torch, np, args.seed)
+    log(f"xlstm summary: {json.dumps(xlstm)}")
+    clock = phase_done("7 (xlstm-350m)", clock)
+
+    # 8. training
+    grad_rows = phase_kernel_grads(torch)
+    train_launches = phase_train_launcher(torch)
+    training = phase_train(torch, np, args.seed)
+    log(f"train summary: {json.dumps(training)}")
+    clock = phase_done("8 (training)", clock)
+
+    # 9. concurrent transactional runs
+    by_path.update(phase_concurrent(torch, args.sf, args.seed, card))
+    phase_done("9 (concurrent runs)", clock)
+
     kernels = []
     for name, ops_ in (("masked_segment_sum", ("sum",)),
                        ("masked_segment_reduce", ("min", "max"))):
@@ -2364,36 +2458,6 @@ def main() -> int:
             "registers": row["registers"], "spill_bytes": row["spill_bytes"],
         })
 
-    # 6. the model stack
-    del data
-    torch.cuda.empty_cache()
-    model_rows = phase_model_kernels(torch, ptxas)
-    if args.log_dir:
-        with open(os.path.join(args.log_dir, "kernels.jsonl"), "a") as f:
-            for row in model_rows:
-                f.write(json.dumps(row) + "\n")
-    with torch.no_grad():           # serving: no autograd graph
-        model = phase_model(torch, np, args.seed)
-    log(f"model summary: {json.dumps(model)}")
-    clock = phase_done("6 (recurrentgemma-9b)", clock)
-
-    # 7. xlstm-350m
-    mlstm_rows = phase_mlstm_kernels(torch, ptxas)
-    if args.log_dir:
-        with open(os.path.join(args.log_dir, "kernels.jsonl"), "a") as f:
-            for row in mlstm_rows:
-                f.write(json.dumps(row) + "\n")
-    with torch.no_grad():
-        xlstm = phase_xlstm(torch, np, args.seed)
-    log(f"xlstm summary: {json.dumps(xlstm)}")
-    clock = phase_done("7 (xlstm-350m)", clock)
-
-    # 8. training
-    grad_rows = phase_kernel_grads(torch)
-    train_launches = phase_train_launcher(torch)
-    training = phase_train(torch, np, args.seed)
-    log(f"train summary: {json.dumps(training)}")
-    phase_done("8 (training)", clock)
     grad_launches = {r["op"].split()[0]: 0 for r in grad_rows}
     for r in grad_rows:
         grad_launches[r["op"].split()[0]] += r["launches"]

@@ -11,11 +11,17 @@ See DESIGN.md §14. Public surface:
   instrumentation sites.
 - ``manifest`` helpers — commit-anchored run manifests
   (``Catalog.run_manifest`` reads these back).
+- ``export`` helpers — JSON and Chrome trace-event (Perfetto) output.
 
 Invariant (test-gated): nothing in this package is consulted by
 ``engine.cache_key`` or any backend ``cache_token`` — tracing observes
 execution, it never changes what executes or what a result hashes to.
 """
+from repro_torch.obs.export import (
+    to_chrome_trace,
+    to_json,
+    write_chrome_trace,
+)
 from repro_torch.obs.manifest import (
     MANIFEST_FORMAT,
     MANIFEST_REF_PREFIX,
@@ -40,4 +46,5 @@ __all__ = [
     "Counter", "Histogram", "MetricsRegistry", "NULL_METRICS",
     "MANIFEST_REF_PREFIX", "MANIFEST_FORMAT",
     "build_manifest", "store_manifest", "load_manifest",
+    "to_json", "to_chrome_trace", "write_chrome_trace",
 ]

@@ -54,9 +54,16 @@ Params = dict[str, torch.Tensor]
 class TrainConfig:
     steps: int = 100
     ckpt_every: int = 50
+    # accepted for repro's callers and ignored: repro's train never reads
+    # it either
+    log_every: int = 10
     remat: str | None = None
     z_loss: float = 1e-4
     aux_weight: float = 1e-2
+    # accepted for repro's callers and ignored: the flash kernel picks its
+    # own tiles (kernels/flash_attention/kernel.py)
+    block_q: int = 512
+    block_kv: int = 512
     seed: int = 0
     # microbatch gradient accumulation: the global batch is split into
     # `accum` microbatches run one after another; live activation memory

@@ -27,6 +27,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.training import optimizer as JO  # noqa: E402
+from repro.training import train_loop as JTL  # noqa: E402
 from repro_torch.checkpoints.checkpointing import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core.catalog import Catalog, Visibility  # noqa: E402
@@ -206,6 +207,28 @@ def test_batches_are_validated_against_the_contract():
         train(CFG, pipeline=bad, opt_cfg=TO.AdamWConfig(),
               tc=TrainConfig(steps=1, device="cpu"),
               on_step=lambda *_: pytest.fail("a step ran"))
+
+
+@pytest.mark.parametrize("field", dataclasses.fields(JTL.TrainConfig),
+                         ids=lambda f: f.name)
+def test_train_config_takes_every_field_of_repros(field):
+    """Code written for ``repro`` constructs the port's config: every
+    field of ``repro``'s ``TrainConfig``, at ``repro``'s default."""
+    value = (field.default_factory() if field.default is dataclasses.MISSING
+             else field.default)
+    tc = TrainConfig(**{field.name: value})
+    assert getattr(tc, field.name) == value
+    assert getattr(TrainConfig(), field.name) == value
+
+
+def test_train_config_with_repros_logging_field_trains():
+    """The root example's ``log_every=50`` trains a step (it is ignored,
+    as ``repro``'s ``train`` ignores it)."""
+    tc = TrainConfig(steps=1, ckpt_every=25, log_every=50, device="cpu")
+    result = train(CFG, pipeline=_pipeline(), opt_cfg=TO.AdamWConfig(lr=1e-3),
+                   tc=tc, ckpt=CheckpointManager(Catalog(), branch="main"))
+    [step] = result["history"]
+    assert step["step"] == 0 and np.isfinite(step["loss"])
 
 
 # ---------------------------------------------------------------------------
