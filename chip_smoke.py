@@ -168,7 +168,7 @@ before the result line):
    ``--sf``), each on a fresh ``Client`` whose ``main`` holds the
    generated ``lineitem`` and an ``l_suppkey`` drawn per TPC-H §4.2.3, on
    the default backend, every run's verifier holding it at a barrier
-   until all have executed: (a) ``AGENTS`` threads, each a one-node
+   until all have executed: (a) eight threads (``AGENTS``), each a one-node
    ``Client.run`` grouping by ``l_orderkey`` or ``l_suppkey`` (SUM of
    ``l_quantity * (i + 1)``, COUNT, MIN and MAX of ``l_extendedprice``):
    every run commits, ``main`` gains one commit per run, no rebase
@@ -179,7 +179,13 @@ before the result line):
    ``main``, the rest commit, and ``Catalog.gc`` collects its branch. In
    each, both segment kernels launch and ``chaos.check_history`` finds no
    violation; wall seconds, runs per second, CAS attempts and rebases are
-   printed beside the card.
+   printed beside the card. Every segment call of (a), recorded on
+   ``exec/torch_backend.py`` from the eight threads, is held against its
+   plain version on the same card tensors. Then two diagnostics that no
+   check reads: the eight runs one after another on the same backend,
+   and (a) again under the device profiler, each with the engine's and
+   the transaction's spans (``node``, ``verifier``,
+   ``publication_attempt``).
 
 The last two lines of standard output are one JSON object of the
 kernels' numbers, then ``{"ok": true, "device": {...}}``.
@@ -1003,12 +1009,13 @@ def same_columns(np, got, want, label: str) -> None:
 
 
 @contextlib.contextmanager
-def segment_calls(calls: list):
+def segment_calls(calls: list, part):
     """Records the inputs and outputs, on the card, of every segment
-    kernel call the partial path makes (``exec/partitioned.py``'s
-    ``_reduce`` and ``_combine``), for ``check_calls``. Each call still
-    goes through the wrapper, which counts its launch as before."""
-    from repro_torch.exec import partitioned as part
+    kernel call made through the names that the module ``part`` imported
+    (``exec/partitioned.py``'s ``_reduce`` and ``_combine``, or
+    ``exec/torch_backend.py``'s group-by, from any thread), for
+    ``check_calls``. Each call still goes through the wrapper, which
+    counts its launch as before."""
     seg_sum, seg_reduce = part.masked_segment_sum, part.masked_segment_reduce
 
     def rec_sum(values, ids, valid, num_segments):
@@ -1112,6 +1119,7 @@ def phase_partial(torch, np, data, slice_tables):
     from repro_torch.configs.paper_pipeline import build_pipeline, seed_lake
     from repro_torch.core.planner import plan
     from repro_torch.core.runner import Client
+    from repro_torch.exec import partitioned
     from repro_torch.exec.partitioned import PartitionedBackend
     from repro_torch.exec.torch_backend import TorchBackend
     from repro_torch.exec.vectorized import VectorizedBackend
@@ -1126,7 +1134,7 @@ def phase_partial(torch, np, data, slice_tables):
     # (a) one card (every visible card: one on this machine)
     one = PartitionedBackend(device=DEVICE)
     reset_launches()
-    with tracing() as rec, segment_calls(calls):
+    with tracing() as rec, segment_calls(calls, partitioned):
         got, part_walls = group_by_timed(torch, one, cols, reps=1)
     launches["partial_1card"] = read_launches()
     check_calls(torch, calls, "partial a", heaviest)
@@ -1151,7 +1159,7 @@ def phase_partial(torch, np, data, slice_tables):
     # (b) four partitions through the multi-card code
     four = PartitionedBackend(devices=FOUR_CARDS)
     reset_launches()
-    with tracing() as rec, segment_calls(calls):
+    with tracing() as rec, segment_calls(calls, partitioned):
         got, walls = group_by_timed(torch, four, cols, reps=1)
     launches["partial_4"] = read_launches()
     check_calls(torch, calls, "partial b", heaviest)
@@ -1176,7 +1184,7 @@ def phase_partial(torch, np, data, slice_tables):
                "partial c: no partial_agg rewrite", step.provenance)
         log(f"partial c: order_lines provenance {list(step.provenance)}")
         reset_launches()
-        with tracing() as rec, segment_calls(calls):
+        with tracing() as rec, segment_calls(calls, partitioned):
             routed, _, wall = run_pipeline(data, plan_=pl)
         launches["partial_route"] = read_launches()
         check_calls(torch, calls, "partial c", heaviest)
@@ -1208,7 +1216,7 @@ def phase_partial(torch, np, data, slice_tables):
     client = sql_client(data)
     for label, (query, probe) in QUERIES.items():
         reset_launches()
-        with tracing() as rec, segment_calls(calls):
+        with tracing() as rec, segment_calls(calls, partitioned):
             result, wall = run_query(client, query, four, cache=False)
         path = f"partial_{label}"
         launches[path] = read_launches()
@@ -2207,41 +2215,85 @@ def phase_train(torch, np, seed: int) -> dict:
 # phase 9: concurrent transactional runs
 # ---------------------------------------------------------------------------
 
-AGENTS = 8          # phase 9's concurrent runs, as in repro's benchmark
+TXN_SPANS = ("node", "verifier", "publication_attempt")
 
 
-def phase_concurrent(torch, sf: float, seed: int, card: str) -> dict:
+def span_totals(rec) -> dict:
+    """Count, summed and longest seconds of the engine's node spans and
+    the transaction's verifier and publication spans (a verifier span of
+    phase 9 includes its wait at the gate)."""
+    out = {}
+    for name in TXN_SPANS:
+        secs = [sp.t1 - sp.t0 for sp in rec.spans(name)]
+        out[name] = {"n": len(secs), "sum_s": sum(secs),
+                     "max_s": max(secs, default=0.0)}
+    return out
+
+
+def phase_concurrent(torch, sf: float, seed: int, card: str
+                     ) -> tuple[dict, dict]:
     """Phase 9: ``examples/concurrent_runs.py``'s three scenarios on the
-    default backend; each must launch both segment kernels. Returns the
-    kernels' launches by scenario."""
+    default backend; each must launch both segment kernels, and every
+    segment call of (a) is held against its plain version. Then the
+    diagnostics: the runs one after another, and (a) profiled. Returns
+    the kernels' launches by scenario, and per segment kernel the
+    largest error of (a)'s calls."""
     from repro_torch import exec as exec_backends
     from repro_torch.examples import concurrent_runs as cr
+    from repro_torch.exec import torch_backend
+    from repro_torch.obs import tracing
+    from repro_torch.obs.device_time import kernel_names
 
     expect(exec_backends.active_backend().name == "torch_auto",
            "the default backend is not torch_auto")
     t0 = time.perf_counter()
     lineitem = cr.lineitem_with_suppkey(sf, seed)
-    want = cr.reference(lineitem, [cr.agent_plan(i) for i in range(AGENTS)])
+    plans = [cr.agent_plan(i) for i in range(cr.AGENTS)]
+    want = cr.reference(lineitem, plans)
     log(f"concurrent: lineitem {len(lineitem['l_orderkey'])} rows, "
         f"{ {k: len(t) for k, t in want.items()} } groups; vectorized "
         f"references in {time.perf_counter() - t0:.2f} s")
-    launches = {}
+    launches, heaviest, calls = {}, {}, []
     for path, run in (
-            ("concurrent_a", lambda: cr.disjoint(lineitem, AGENTS,
-                                                 want=want)),
+            ("concurrent_a", lambda: cr.disjoint(lineitem, want=want)),
             ("concurrent_b", lambda: cr.same_table(lineitem, want=want)),
-            ("concurrent_c", lambda: cr.crash_one(lineitem, AGENTS,
-                                                  seed=seed, want=want))):
+            ("concurrent_c", lambda: cr.crash_one(lineitem, seed=seed,
+                                                  want=want))):
         reset_launches()
-        summary = run()
-        torch.cuda.synchronize()
+        with (segment_calls(calls, torch_backend) if path == "concurrent_a"
+              else contextlib.nullcontext()):
+            summary = run()
+            torch.cuda.synchronize()
         launches[path] = read_launches()
         expect(launches[path]["masked_segment_sum"] > 0
                and launches[path]["masked_segment_reduce"] > 0,
                path, "a segment kernel never launched", launches[path])
         log(f"{path}: {json.dumps(summary)} launches "
             f"{json.dumps(launches[path])} ({card})")
-    return launches
+        if path == "concurrent_a":
+            check_calls(torch, calls, "concurrent a", heaviest)
+
+    # diagnostics: the same runs one after another, then (a) profiled
+    t0 = time.perf_counter()
+    with tracing() as rec:
+        cr.reference(lineitem, plans, exec_backends.active_backend())
+        torch.cuda.synchronize()
+    log(f"concurrent serial: {cr.AGENTS} runs one after another in "
+        f"{time.perf_counter() - t0:.4f} s; spans "
+        f"{json.dumps(span_totals(rec))} ({card})")
+    reset_launches()
+    got = {}
+    with tracing() as rec:
+        prof = profile_device(
+            torch, "concurrent a profiled",
+            lambda: got.update(cr.disjoint(lineitem, want=want)))
+    names = kernel_names(os.path.join(ROOT, SOURCES["masked_segment_sum"]))
+    seen = sum(c for k, _, c in (prof or {}).get("top", ())
+               if any(f"{n}<" in k or f"{n}(" in k for n in names))
+    log(f"concurrent a profiled: {json.dumps(got)} launches "
+        f"{json.dumps(read_launches())}, kernels of segment_sum.cu in the "
+        f"trace {seen}; spans {json.dumps(span_totals(rec))} ({card})")
+    return launches, {k: v["err"] for k, v in heaviest.items()}
 
 
 def ptxas_kernels(report: str) -> dict:
@@ -2414,7 +2466,9 @@ def main() -> int:
     clock = phase_done("8 (training)", clock)
 
     # 9. concurrent transactional runs
-    by_path.update(phase_concurrent(torch, args.sf, args.seed, card))
+    concurrent_launches, concurrent_err = phase_concurrent(
+        torch, args.sf, args.seed, card)
+    by_path.update(concurrent_launches)
     phase_done("9 (concurrent runs)", clock)
 
     kernels = []
@@ -2429,7 +2483,8 @@ def main() -> int:
             "launches_by_path": {k: p[name] for k, p in by_path.items()},
             "max_abs_err": max([r["max_abs_err"] for r in rows
                                 if r["op"] in ops_]
-                               + [row["max_abs_err"]]),
+                               + [row["max_abs_err"],
+                                  concurrent_err[name]]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],

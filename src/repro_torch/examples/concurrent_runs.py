@@ -1,7 +1,7 @@
 """Concurrent agents publishing group-by aggregates of one ``lineitem``.
 
     PYTHONPATH=src python -m repro_torch.examples.concurrent_runs \\
-        [--sf 1] [--seed 0] [--agents 8] [--device cuda]
+        [--sf 1] [--seed 0] [--device cuda]
 
 The root ``examples/concurrent_writers.py`` (steps 1 and 3) and
 ``benchmarks/concurrent_publication.py::bench_rebase_reexecution``, at
@@ -10,13 +10,13 @@ default, ``torch_auto`` on the card, sends a 6M-row group-by to the
 segment kernels). Three scenarios, each on a fresh ``Client`` whose
 ``main`` holds the generated ``lineitem``:
 
-- :func:`disjoint`: K agents, one one-node pipeline each, started
-  behind one barrier. Agent i groups ``lineitem`` by ``l_orderkey``
+- :func:`disjoint`: :data:`AGENTS` agents, one one-node pipeline each,
+  started behind one barrier. Agent i groups ``lineitem`` by ``l_orderkey``
   (even i) or ``l_suppkey`` (odd i) and computes the SUM of
   ``l_quantity * (i + 1)``, COUNT, and MIN and MAX of
   ``l_extendedprice``. Each run's verifier waits once at a second
-  barrier, so every run has executed before any publishes: K - 1 of
-  them must rebase past the others, and each rebase must re-execute
+  barrier, so every run has executed before any publishes: all but one
+  of them must rebase past the others, and each rebase must re-execute
   nothing (the inputs did not move; the node cache answers).
 - :func:`same_table`: two agents write one table with different
   contents behind the same gate: exactly one commits, the other aborts
@@ -29,7 +29,8 @@ Every published table must equal the same node run serially on the
 port's ``vectorized`` backend, exactly (the nodes have no float SUM or
 MEAN), and :func:`repro_torch.chaos.check_history` must find no
 violation in the history, built from the run registry. A failed check
-raises :class:`CheckFailed`.
+raises :class:`CheckFailed`. Each scenario takes those reference tables
+from its caller (:func:`reference`, computed once).
 """
 from __future__ import annotations
 
@@ -54,9 +55,10 @@ from repro_torch.core.runner import Client
 from repro_torch.data.tables import Table, col, lit
 from repro_torch.examples.tpch import generate
 
-__all__ = ["CheckFailed", "lineitem_with_suppkey", "agent_plan",
-           "disjoint", "same_table", "crash_one"]
+__all__ = ["AGENTS", "CheckFailed", "lineitem_with_suppkey", "agent_plan",
+           "reference", "disjoint", "same_table", "crash_one"]
 
+AGENTS = 8                       # as repro's bench_rebase_reexecution
 SUPPLIERS_SF1 = 10_000           # TPC-H §4.2.3: S = SF * 10,000
 PARTS_SF1 = 200_000
 BARRIER_TIMEOUT_S = 600.0        # a broken run breaks the barrier sooner
@@ -209,11 +211,11 @@ def history(client: Client, plans: Sequence, agents: Agents
     return records
 
 
-def reference(lineitem: dict[str, np.ndarray], plans: Sequence
-              ) -> dict[str, Table]:
-    """Each plan run alone, one after another, on ``vectorized``."""
+def reference(lineitem: dict[str, np.ndarray], plans: Sequence,
+              backend="vectorized") -> dict[str, Table]:
+    """Each plan run alone, one after another, on ``backend``."""
     client = fresh_client(lineitem)
-    with exec_backends.use_backend("vectorized"):
+    with exec_backends.use_backend(backend):
         for pl in plans:
             client.run(pl, "main")
     return {_output(pl): client.read_table("main", _output(pl))
@@ -251,16 +253,18 @@ def _check_clean(client: Client, records) -> None:
     _expect(not bad, "check_history:", bad)
 
 
-def _run_disjoint(lineitem, k: int, want: dict[str, Table], label: str,
+def _run_disjoint(lineitem, want: dict[str, Table], label: str,
                   plan_faults: FaultPlan | None = None):
     client = fresh_client(lineitem)
-    plans = [agent_plan(i) for i in range(k)]
+    plans = [agent_plan(i) for i in range(AGENTS)]
     before = client.catalog.log("main", limit=1_000_000)
     if plan_faults is None:
-        agents = run_agents(client, plans, max_publish_attempts=4 * k)
+        agents = run_agents(client, plans,
+                            max_publish_attempts=4 * AGENTS)
     else:
         with fault_injection(plan_faults):
-            agents = run_agents(client, plans, max_publish_attempts=4 * k)
+            agents = run_agents(client, plans,
+                                max_publish_attempts=4 * AGENTS)
     records = history(client, plans, agents)
     committed = [o for o in agents.outcome.values()
                  if not isinstance(o, BaseException)]
@@ -289,13 +293,10 @@ def _run_disjoint(lineitem, k: int, want: dict[str, Table], label: str,
     return client, plans, records, summary
 
 
-def disjoint(lineitem: dict[str, np.ndarray], k: int = 8, *,
-             want: dict[str, Table] | None = None) -> dict:
-    """Scenario (a). ``want``: :func:`reference`'s tables, if already
-    computed."""
-    if want is None:
-        want = reference(lineitem, [agent_plan(i) for i in range(k)])
-    _, _, records, summary = _run_disjoint(lineitem, k, want, "disjoint")
+def disjoint(lineitem: dict[str, np.ndarray], *,
+             want: dict[str, Table]) -> dict:
+    """Scenario (a). ``want``: :func:`reference`'s tables."""
+    _, _, records, summary = _run_disjoint(lineitem, want, "disjoint")
     _expect(all(r.outcome == "committed" for r in records),
             "disjoint: a run did not commit",
             [(r.agent, r.outcome) for r in records])
@@ -303,14 +304,11 @@ def disjoint(lineitem: dict[str, np.ndarray], k: int = 8, *,
 
 
 def same_table(lineitem: dict[str, np.ndarray], *,
-               want: dict[str, Table] | None = None) -> dict:
+               want: dict[str, Table]) -> dict:
     """Scenario (b): agents 1 and 3's nodes, both writing ``hot``.
-    ``want``: :func:`reference`'s tables of agents 1 and 3, if already
-    computed."""
+    ``want``: :func:`reference`'s tables (agents 1 and 3's at least)."""
     agents_ = (1, 3)
     plans = [agent_plan(i, "hot") for i in agents_]
-    if want is None:
-        want = reference(lineitem, [agent_plan(i) for i in agents_])
     client = fresh_client(lineitem)
     agents = run_agents(client, plans, max_publish_attempts=8)
     records = history(client, plans, agents)
@@ -338,20 +336,18 @@ def same_table(lineitem: dict[str, np.ndarray], *,
             "winner": agents_[w.agent], "loser": agents_[l.agent]}
 
 
-def crash_one(lineitem: dict[str, np.ndarray], k: int = 8, *,
-              seed: int = 0, want: dict[str, Table] | None = None) -> dict:
+def crash_one(lineitem: dict[str, np.ndarray], *, seed: int,
+              want: dict[str, Table]) -> dict:
     """Scenario (c): :func:`disjoint` with one run crashing at the CAS
     boundary, then the recovery sweep."""
-    if want is None:
-        want = reference(lineitem, [agent_plan(i) for i in range(k)])
     faults = FaultPlan(seed, [FaultRule("txn.commit.pre_merge", "crash")],
                        budget=1)
     client, plans, records, summary = _run_disjoint(
-        lineitem, k, want, "crash", faults)
+        lineitem, want, "crash", faults)
     crashed = [r for r in records if r.outcome == "crashed"]
     _expect(len(crashed) == 1 and faults.faults_injected == 1,
             "crash: runs crashed", [(r.agent, r.outcome) for r in records])
-    _expect(sum(r.outcome == "committed" for r in records) == k - 1,
+    _expect(sum(r.outcome == "committed" for r in records) == AGENTS - 1,
             "crash: the others did not all commit")
     (dead,) = crashed
     cat = client.catalog
@@ -373,19 +369,17 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--agents", type=int, default=8)
     ap.add_argument("--device", default="cuda",
                     help="the card, or cpu (default: cuda)")
     args = ap.parse_args(argv)
     from repro_torch.exec.torch_auto import TorchAutoBackend
     lineitem = lineitem_with_suppkey(args.sf, args.seed)
-    want = reference(lineitem, [agent_plan(i) for i in range(args.agents)])
+    want = reference(lineitem, [agent_plan(i) for i in range(AGENTS)])
     out = {}
     with exec_backends.use_backend(TorchAutoBackend(device=args.device)):
-        out["disjoint"] = disjoint(lineitem, args.agents, want=want)
+        out["disjoint"] = disjoint(lineitem, want=want)
         out["same_table"] = same_table(lineitem, want=want)
-        out["crash"] = crash_one(lineitem, args.agents, seed=args.seed,
-                                 want=want)
+        out["crash"] = crash_one(lineitem, seed=args.seed, want=want)
     for name, summary in out.items():
         print(f"{name}: {json.dumps(summary)}")
     return out

@@ -12,8 +12,11 @@ No check depends on threads contending on their own.
 phase 9, at SF 0.01) run on ``torch_auto`` over the CPU, with its device
 threshold lowered so the group-bys take the ``torch`` backend's path
 through the segment wrappers. Their tables are held against the same
-nodes run serially on ``vectorized``: exactly (integer SUM, COUNT, and
-MIN/MAX; the nodes have no float SUM).
+nodes built with ``repro``'s pipeline and planner and run serially
+through ``repro``'s ``Client.run`` (its default backend, ``vectorized``)
+on the same ``lineitem``: exactly (integer SUM, COUNT, and MIN/MAX; the
+nodes have no float SUM). The port's ``vectorized`` tables, which
+``chip_smoke.py`` holds the card's runs to, equal ``repro``'s as well.
 """
 import threading
 
@@ -24,7 +27,7 @@ from repro.core.runner import Client as JClient
 from repro.core import schema as JS
 from repro.core.dag import Pipeline as JPipeline
 from repro.core.planner import plan as jplan
-from repro.data.tables import Table as JTable, col as jcol
+from repro.data.tables import Table as JTable, col as jcol, lit as jlit
 from repro_torch import exec as exec_backends
 from repro_torch.chaos import AgentRecord, check_history
 from repro_torch.core import schema as S
@@ -40,7 +43,7 @@ from repro_torch.examples import concurrent_runs as cr
 from repro_torch.exec import torch_auto, torch_backend
 from repro_torch.exec.torch_auto import TorchAutoBackend
 
-K = 8
+K = cr.AGENTS
 
 
 def _spawn(n, fn):
@@ -237,9 +240,53 @@ def lineitem():
     return cr.lineitem_with_suppkey(0.01, seed=0)
 
 
+def _jagent_plan(i):
+    """``cr.agent_plan(i)`` built with ``repro``'s modules."""
+    key = "l_orderkey" if i % 2 == 0 else "l_suppkey"
+    Lines = JS.Schema.of("Lines", l_orderkey="int64", l_suppkey="int64",
+                         l_quantity="int64", l_extendedprice="float64")
+    Agg = JS.Schema.of("Agg", key="int64", sum_qty="int64",
+                       n_lines="int64", min_price="float64",
+                       max_price="float64")
+    p = JPipeline(f"agent{i}")
+    p.source("lineitem", Lines)
+
+    @p.node(name=f"agg_{i}")
+    def aggregate(li: Lines = "lineitem") -> Agg:
+        rows = li.select([jcol(key).alias("key"),
+                          (jcol("l_quantity") * jlit(i + 1)).alias("qty"),
+                          jcol("l_extendedprice")])
+        return rows.group_by(["key"]).agg(
+            ("sum", "qty", "sum_qty"), ("count", "qty", "n_lines"),
+            ("min", "l_extendedprice", "min_price"),
+            ("max", "l_extendedprice", "max_price"))
+
+    return jplan(p)
+
+
 @pytest.fixture(scope="module")
 def want(lineitem):
-    return cr.reference(lineitem, [cr.agent_plan(i) for i in range(K)])
+    """``repro``'s tables: each agent's node run alone through its
+    ``Client.run``, as the port's ``Table`` (columns and validity)."""
+    client = JClient()
+    client.write_source_table("main", "lineitem", JTable(lineitem))
+    out = {}
+    for i in range(K):
+        client.run(_jagent_plan(i), "main")
+        t = client.read_table("main", f"agg_{i}")
+        out[f"agg_{i}"] = Table._from_cols(t._to_cols())
+    return out
+
+
+def test_port_reference_equals_repros(lineitem, want):
+    """The port's serial ``vectorized`` runs (``cr.reference``, what
+    the card's phase 9 is held to) equal ``repro``'s, bit for bit."""
+    got = cr.reference(lineitem, [cr.agent_plan(i) for i in range(K)])
+    assert set(got) == set(want)
+    for name in want:
+        cr.same_columns(got[name], want[name], name)
+        assert got[name].num_rows == (15_000 if name[-1] in "0246"
+                                      else 100)
 
 
 @pytest.fixture
@@ -274,7 +321,7 @@ def test_suppkey_follows_tpch(lineitem):
 
 
 def test_disjoint_agents(lineitem, want, torch_path):
-    out = cr.disjoint(lineitem, K, want=want)
+    out = cr.disjoint(lineitem, want=want)
     assert out["committed"] == K and out["rebases"] >= K - 1
     assert out["rebase_reexecutions"] == 0
     # one SUM and COUNT launch and two MIN/MAX a run: 8 runs, no rebase
@@ -288,7 +335,7 @@ def test_same_table_agents(lineitem, want, torch_path):
 
 
 def test_crashed_agent(lineitem, want, torch_path):
-    out = cr.crash_one(lineitem, K, seed=0, want=want)
+    out = cr.crash_one(lineitem, seed=0, want=want)
     assert out["committed"] == K - 1
     assert out["collected"] == [f"txn/{out['crashed_run']}"]
 
@@ -299,4 +346,4 @@ def test_scenarios_fail_loudly(lineitem, want, torch_path):
     wrong = dict(want)
     wrong["agg_2"] = want["agg_0"]
     with pytest.raises(cr.CheckFailed, match="agg_2"):
-        cr.disjoint(lineitem, K, want=wrong)
+        cr.disjoint(lineitem, want=wrong)
