@@ -185,7 +185,45 @@ before the result line):
    check reads: the eight runs one after another on the same backend,
    and (a) again under the device profiler, each with the engine's and
    the transaction's spans (``node``, ``verifier``,
-   ``publication_attempt``).
+   ``publication_attempt``);
+10. the model families that reached the port last, and phi4-mini-3b,
+   each built on the card from ``--seed`` and freed before the next,
+   under ``torch.no_grad()``; every prefill cold and warm, with wall
+   seconds, tokens/s, peak memory, flash launches by kernel and argmax
+   tokens, then profiled:
+   a. flash against its plain version (``FLASH_TOL``) at the new shapes:
+      hd 96 (B=1, H=K=32, S=4096, causal) in bf16 and float32, both on
+      the simt kernel; whisper's cross attention (B=4, H=K=16, Sq=448,
+      Skv=1500, hd 64, bf16, non-causal), its encoder's 1500 x 1500
+      non-causal self attention, and a ragged Skv=1499 in float32; times,
+      bound and SDPA's time as in 6a;
+   b. granite-moe-3b (``configs/granite_moe_3b.py``: 32 layers, d_model
+      1536, 40 experts top-8 of d_ff 512, group 512, capacity 128): a 4 x
+      4096 prefill (32 flash launches, all wgmma; aux finite; the share
+      of (token, slot) pairs dropped by capacity), layer 0's MoE at that
+      shape against a plain loop over the experts with the same routing
+      (``MOE_LAYER_REL``), and 16 greedy decode steps from the prefill's
+      K/V, finite (prefill and decode are not held against each other:
+      a 512-token group drops over capacity, a one-token group never);
+   c. llama4-scout-17b (``configs/llama4_scout_17b.py``: d_model 5120,
+      16 experts top-1 of d_ff 8192 and a shared expert, GQA 40/8 at hd
+      128) at full width, its depth cut to ``LLAMA4_LAYERS`` of 48: a 2 x
+      4096 prefill, one wgmma launch a layer;
+   d. whisper-medium (``configs/whisper_medium.py``: 24 encoder and 24
+      decoder layers, d_model 1024, hd 64): 4 x 1500 frame embeddings
+      from the seed, encoded, then a 4 x 448 decoder prefill (72 flash
+      launches, all wgmma: 24 encoder, 24 self, 24 cross), then 16 greedy
+      decode steps against ``init_cache(enc_out=...)``, finite;
+   e. phi3-vision-4b (``configs/phi3_vision_4b.py``: 32 layers, d_model
+      3072, hd 96): a 4 x 4096 prefill with 576 patch embeddings fused
+      over the first positions, 32 flash launches on the simt kernel;
+   f. phi4-mini-3b (``configs/phi4_mini_3b.py``: 32 layers, d_model
+      3072, GQA 24/8 at hd 128, no window): a 4 x 4096 prefill, 32
+      wgmma launches; then, in float32 activations over the same
+      weights, a 1024-token prefill's K/V as the decode cache and 64
+      teacher-forced decode steps, their last logits against the prefill
+      of all 1088 tokens within ``PREFILL_DECODE_LOGITS_RTOL`` (the
+      argmax too where the top-2 margin exceeds that error).
 
 The last two lines of standard output are one JSON object of the
 kernels' numbers, then ``{"ok": true, "device": {...}}``.
@@ -1333,12 +1371,13 @@ def flash_case(torch, case: dict, g):
     from repro_torch.kernels.flash_attention import kernel, ops, ref
     import torch.nn.functional as F
     B, H, K, S, hd = (case[k] for k in ("B", "H", "K", "S", "hd"))
+    skv = case.get("Skv", S)        # cross attention: keys of the encoder
     causal, window, dt = case["causal"], case["window"], case["dtype"]
     dtype = getattr(torch, dt)
     log(f"kernel check: flash_attention {json.dumps(case)}")
     q = torch.randn(B, H, S, hd, generator=g, device=DEVICE, dtype=dtype)
-    k = torch.randn(B, K, S, hd, generator=g, device=DEVICE, dtype=dtype)
-    v = torch.randn(B, K, S, hd, generator=g, device=DEVICE, dtype=dtype)
+    k = torch.randn(B, K, skv, hd, generator=g, device=DEVICE, dtype=dtype)
+    v = torch.randn(B, K, skv, hd, generator=g, device=DEVICE, dtype=dtype)
     call = lambda: ops.flash_attention(q, k, v, causal=causal, window=window)
     alone = lambda: kernel.flash_attention(q, k, v, causal=causal,
                                            window=window)[0]
@@ -1346,7 +1385,8 @@ def flash_case(torch, case: dict, g):
     before = dict(ops.flash_attention.launches_by_kernel)
     plain = lambda: ref.flash_attention_ref(q, k, v, causal=causal,
                                             window=window)
-    mask = ref.band_mask(S, S, causal=causal, window=window, device=DEVICE)
+    mask = ref.band_mask(S, skv, causal=causal, window=window,
+                         device=DEVICE)
     library = lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, enable_gqa=K != H)
     got, want, lib = call(), plain(), library()
@@ -1364,7 +1404,7 @@ def flash_case(torch, case: dict, g):
            "flash kernel differs from its plain version", case, err)
     pairs = int(mask.sum())             # the (query, key) pairs this run needs
     flops = 4 * hd * pairs * B * H
-    nbytes = (2 * B * H + 2 * B * K) * S * hd * q.element_size()
+    nbytes = (2 * B * H * S + 2 * B * K * skv) * hd * q.element_size()
     t_ops = flops / PEAK_FLOPS[dt] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     control = None
@@ -1492,10 +1532,15 @@ def phase_launcher(torch, arch: str = ARCH) -> dict:
     return launches
 
 
-def full_model(torch, seed: int, arch: str = ARCH):
+def full_model(torch, seed: int, arch: str = ARCH, layers: int | None = None):
+    """The full config of ``arch`` (its depth cut to ``layers`` when
+    given), weights drawn on the card from ``seed``."""
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     t0 = time.perf_counter()
     g = torch.Generator(device=DEVICE)
     g.manual_seed(seed)
@@ -1512,20 +1557,28 @@ def full_model(torch, seed: int, arch: str = ARCH):
 
 def forward_launches(model) -> dict:
     """The kernel launches of one prefill forward, from the layer kinds:
-    one flash call per attention block, one scan per RG-LRU block, one
-    mLSTM call per mLSTM block."""
+    one flash call per attention block (two with an encoder: self and
+    cross attention) and per encoder layer, one scan per RG-LRU block,
+    one mLSTM call per mLSTM block."""
     kinds = [b.kind for b in model.layers]
-    return {"flash_attention": sum(k in ("attn", "local") for k in kinds),
+    cfg = model.cfg
+    attn = sum(k in ("attn", "local") for k in kinds)
+    return {"flash_attention": attn * (2 if cfg.encoder_layers else 1)
+            + cfg.encoder_layers,
             "rglru_scan": kinds.count("rglru"),
             "mlstm_chunkwise": kinds.count("mlstm")}
 
 
 def phase_prefill(torch, cfg, model, seed: int, want: dict,
                   batch: int = PREFILL_BATCH, length: int = PREFILL_LEN,
-                  label: str = "prefill") -> dict:
-    """6c and 7c: the serving prefill at full width and depth; ``want``
+                  label: str = "prefill", extra: dict | None = None,
+                  keep: bool = False) -> dict:
+    """6c, 7c and 10b-10f: the serving prefill at full width; ``want``
     the launches per forward, by kernel, and ``flash_wgmma`` how many of
-    the flash launches must run the wgmma kernel."""
+    the flash launches must run the wgmma kernel. ``extra``: the model's
+    other inputs (audio or vision embeddings). ``keep``: also return the
+    warm run's tokens, logits and K/V (``out["last"]``)."""
+    extra = extra or {}
     expect(forward_launches(model) == {k: n for k, n in want.items()
                                        if k != "flash_wgmma"},
            "layer kinds", forward_launches(model), want)
@@ -1538,7 +1591,8 @@ def phase_prefill(torch, cfg, model, seed: int, want: dict,
         torch.cuda.reset_peak_memory_stats()
         reset_model_launches()
         t0 = time.perf_counter()
-        logits, aux, kvs = model(tokens, mode="last_logits", return_kv=True)
+        logits, aux, kvs = model(tokens, mode="last_logits", return_kv=True,
+                                 **extra)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_model_launches()
@@ -1546,8 +1600,10 @@ def phase_prefill(torch, cfg, model, seed: int, want: dict,
         expect(logits.shape == (batch, 1, cfg.padded_vocab)
                and logits.dtype == torch.float32, "logits", logits.shape)
         expect(bool(torch.isfinite(logits).all()), "non-finite logits")
+        expect(bool(torch.isfinite(aux)), "non-finite aux loss")
         live = [kv for kv in kvs if kv is not None]
-        expect(len(live) == want["flash_attention"] and all(
+        expect(len(live) == sum(b.kind in ("attn", "local")
+                                for b in model.layers) and all(
             kv[0].shape == (batch, cfg.num_kv_heads, length, cfg.head_dim)
             for kv in live), "prefill K/V")
         peak = torch.cuda.max_memory_allocated()
@@ -1555,12 +1611,16 @@ def phase_prefill(torch, cfg, model, seed: int, want: dict,
         log(f"{label} {run}: {batch}x{length} tokens in "
             f"{wall:.4f} s = {toks / wall:.1f} tokens/s; launches "
             f"{json.dumps(launches)}; peak memory {peak / 1e9:.3f} GB; "
-            f"argmax {logits[:, 0, :cfg.vocab_size].argmax(-1).tolist()}")
+            f"aux {float(aux):.6f}; argmax "
+            f"{logits[:, 0, :cfg.vocab_size].argmax(-1).tolist()}")
         out = {"prefill_s": wall, "tokens_per_s": toks / wall,
-               "peak_gb": peak / 1e9, "launches": launches}
+               "peak_gb": peak / 1e9, "launches": launches,
+               "aux": float(aux)}
+        if keep and run == "warm":
+            out["last"] = (tokens, logits, kvs)
         del logits, kvs
     out["profile"] = profile_device(
-        torch, label, lambda: model(tokens, mode="last_logits"))
+        torch, label, lambda: model(tokens, mode="last_logits", **extra))
     return out
 
 
@@ -2296,6 +2356,372 @@ def phase_concurrent(torch, sf: float, seed: int, card: str
     return launches, {k: v["err"] for k, v in heaviest.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the model families that reached the port last, and phi4-mini
+# ---------------------------------------------------------------------------
+
+# 10a: flash at the new families' shapes: phi3-vision's hd 96 (the simt
+# kernel in both dtypes), whisper's cross attention (448 decoder positions
+# over 1500 encoder frames) and its encoder's self attention, both
+# non-causal, and a ragged key length in float32
+FAMILY_FLASH_CASES = [
+    dict(B=1, H=32, K=32, S=4096, hd=96, causal=True, window=None,
+         dtype="bfloat16"),
+    dict(B=1, H=32, K=32, S=4096, hd=96, causal=True, window=None,
+         dtype="float32"),
+    dict(B=4, H=16, K=16, S=448, Skv=1500, hd=64, causal=False, window=None,
+         dtype="bfloat16"),
+    dict(B=4, H=16, K=16, S=1500, hd=64, causal=False, window=None,
+         dtype="bfloat16"),
+    dict(B=4, H=16, K=16, S=448, Skv=1499, hd=64, causal=False, window=None,
+         dtype="float32"),
+]
+FAMILY_BATCH, FAMILY_LEN = 4, 4096
+LLAMA4_LAYERS, LLAMA4_BATCH = 8, 2   # 48 layers hold ~212 GB of bf16
+WHISPER_LEN = 448                    # whisper's decoder positions
+FAMILY_DECODE_STEPS = 16
+PHI4_PROMPT, PHI4_DECODE = 1024, 64
+# One full-width MoE layer (granite, bf16) against a plain loop over the
+# experts that takes the same routing decisions, as max|port - plain| /
+# max|plain|. Both round each expert product to bf16 (cuBLAS, in batched
+# and in single products, which may round an element one bf16 step apart:
+# 2^-8 relative, in h and again in the expert's output) and the port
+# rounds the gate-sum to bf16 once more (2^-9); summed over 8 slots.
+MOE_LAYER_REL = 2e-2
+
+
+def phase_family_kernels(torch, ptxas: dict) -> list:
+    """10a: flash at the new families' shapes against its plain
+    version."""
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(10)
+    rows = []
+    for case in FAMILY_FLASH_CASES:
+        rows.append({**flash_case(torch, case, g), **ptxas_of(
+            ptxas, "flash_attention", flash_tag(case))})
+        log("kernel " + json.dumps(rows[-1]))
+        expect(rows[-1]["kernel"] == ("simt" if case["hd"] == 96
+                                      or case["dtype"] == "float32"
+                                      else "wgmma"), "flash kernel", case)
+    return rows
+
+
+@contextlib.contextmanager
+def moe_drops(stats: list):
+    """Count, on the card, the (token, slot) pairs each MoE call keeps:
+    appends (kept, pairs) tensors to ``stats``."""
+    from repro_torch.models import moe
+    route = moe.route
+
+    def counted(p, xg, cfg):
+        out = route(p, xg, cfg)
+        stats.append((out[3].sum(), out[3].numel()))
+        return out
+
+    moe.route = counted
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+def moe_plain(torch, p, x, cfg):
+    """A MoE layer as a plain loop over the experts: the port's routing
+    decisions (``moe.route``), then each expert's MLP on the tokens it
+    kept, in bf16 products, gate-weighted and summed over the slots in
+    float32."""
+    import torch.nn.functional as F
+    from repro_torch.models import moe
+    from repro_torch.models.layers import mlp_forward
+    B, S, d = x.shape
+    g = moe.group_size(cfg, S)
+    n = S // g
+    xg = x.reshape(B, n, g, d).transpose(0, 1).reshape(n * B, g, d)
+    _, idx, _, keep, gates = moe.route(p, xg, cfg)
+    y = torch.zeros(*idx.shape, d, dtype=torch.float32, device=x.device)
+    xb = xg.to(torch.bfloat16)
+    ew = p["experts"]
+    for e in range(cfg.moe.num_experts):
+        n_i, t_i, j_i = (keep & (idx == e)).nonzero(as_tuple=True)
+        xe = xb[n_i, t_i]
+        if "w_gate" in ew:
+            h = F.silu(xe @ ew["w_gate"][e]) * (xe @ ew["w_up"][e])
+        else:
+            h = F.gelu(xe @ ew["w_up"][e], approximate="tanh")
+        y[n_i, t_i, j_i] = (h @ ew["w_down"][e]).float() \
+            * gates[n_i, t_i, j_i, None]
+    out = y.sum(2).to(x.dtype).reshape(n, B, g, d).transpose(0, 1)
+    out = out.reshape(B, S, d)
+    if "shared" in p:
+        out = out + mlp_forward(p["shared"], x, cfg)
+    return out
+
+
+def moe_layer_check(torch, cfg, model, seed: int) -> dict:
+    """10b: layer 0's MoE at the prefill's shape, the port's batched
+    dispatch against ``moe_plain``."""
+    from repro_torch.models import moe
+    ffn = model.layers[0].ffn
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed + 3)
+    x = torch.randn(FAMILY_BATCH, FAMILY_LEN, cfg.d_model, generator=g,
+                    device=DEVICE, dtype=torch.bfloat16)
+    got, aux = moe.moe_forward(ffn, x, cfg)
+    want = moe_plain(torch, ffn, x, cfg)
+    torch.cuda.synchronize()
+    err = rel_err(torch, got, want)
+    row = {"shape": [FAMILY_BATCH, FAMILY_LEN, cfg.d_model],
+           "rel_err": err, "aux": float(aux),
+           "ms": cuda_ms(torch, lambda: moe.moe_forward(ffn, x, cfg), reps=3),
+           "plain_ms": cuda_ms(torch, lambda: moe_plain(torch, ffn, x, cfg),
+                               reps=1)}
+    log(f"granite MoE layer vs its plain per-expert loop: {json.dumps(row)}")
+    expect(err <= MOE_LAYER_REL, "MoE layer differs from its plain loop",
+           err)
+    return row
+
+
+def cache_from_prefill(torch, model, kvs, batch: int, max_len: int,
+                       enc_out=None) -> list:
+    """Decode caches holding a prefill's K/V at positions 0..S-1 (S <=
+    max_len: no wrap), with the cross placeholders for ``enc_out``."""
+    caches = model.init_cache(batch, max_len, enc_out=enc_out)
+    for cache, kv in zip(caches, kvs):
+        S = kv[0].shape[2]
+        expect(S <= max_len, "the prefill does not fit the cache", S)
+        for name, t in zip(("k", "v"), kv):
+            cache["attn"][name][:, :, :S] = t.to(cache["attn"][name].dtype)
+        cache["attn"]["len"] = S
+    return caches
+
+
+def greedy_decode(torch, cfg, model, caches, logits, label: str,
+                  steps: int = FAMILY_DECODE_STEPS) -> dict:
+    """``steps`` greedy decode steps from a prefill's last logits; every
+    step's logits finite. Decode reaches no kernel."""
+    V = cfg.vocab_size
+    nxt = logits[:, -1, :V].argmax(-1, keepdim=True)
+    reset_model_launches()
+    torch.cuda.synchronize()
+    t0, toks = time.perf_counter(), []
+    for _ in range(steps):
+        out, caches = model.decode_step(nxt, caches)
+        expect(bool(torch.isfinite(out).all()), label, "non-finite logits")
+        nxt = out[:, -1, :V].argmax(-1, keepdim=True)
+        toks.append(nxt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_model_launches()
+    expect(launches["flash_attention"] == 0, label, "decode launched flash")
+    first = torch.cat(toks, 1)[0].tolist()
+    log(f"{label}: {steps} greedy steps in {wall:.3f} s = "
+        f"{1e3 * wall / steps:.2f} ms/step; tokens of request 0 {first}")
+    return {"decode_step_ms": 1e3 * wall / steps, "tokens": first}
+
+
+def family_prefill(torch, cfg, model, seed: int, want: dict, label: str,
+                   **kw) -> dict:
+    """A prefill of phase 10, its flash launches split by kernel."""
+    out = phase_prefill(torch, cfg, model, seed, want=want, label=label,
+                        keep=True, **kw)
+    la = out["launches"]
+    out["flash_by_kernel"] = {"wgmma": la["flash_wgmma"],
+                              "simt": la["flash_attention"]
+                              - la["flash_wgmma"]}
+    log(f"{label}: flash by kernel {json.dumps(out['flash_by_kernel'])}")
+    return out
+
+
+def only_flash(n: int, wgmma: int) -> dict:
+    return {"flash_attention": n, "rglru_scan": 0, "mlstm_chunkwise": 0,
+            "flash_wgmma": wgmma}
+
+
+def summary(out: dict) -> dict:
+    return {k: v for k, v in out.items() if k != "last"}
+
+
+def phase_granite(torch, seed: int) -> dict:
+    """10b: granite-moe-3b, all 32 layers, 40 experts top-8."""
+    cfg, model = full_model(torch, seed, "granite_moe_3b")
+    drops = []
+    with moe_drops(drops):
+        pre = family_prefill(torch, cfg, model, seed,
+                             only_flash(cfg.num_layers, cfg.num_layers),
+                             "granite prefill", batch=FAMILY_BATCH,
+                             length=FAMILY_LEN)
+    kept = sum(int(k) for k, _ in drops)
+    pairs = sum(n for _, n in drops)
+    pre["dropped_share"] = 1 - kept / pairs
+    log(f"granite prefill: {pairs - kept} of {pairs} (token, slot) pairs "
+        f"dropped by capacity ({100 * pre['dropped_share']:.3f}%)")
+    out = {"prefill": pre, "moe_layer": moe_layer_check(torch, cfg, model,
+                                                        seed)}
+    tokens, logits, kvs = pre["last"]
+    caches = cache_from_prefill(torch, model, kvs, FAMILY_BATCH,
+                                FAMILY_LEN + FAMILY_DECODE_STEPS)
+    out["decode"] = greedy_decode(torch, cfg, model, caches, logits,
+                                  "granite decode")
+    out["prefill"] = summary(pre)
+    del model, caches, kvs, logits, pre
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_llama4(torch, seed: int) -> dict:
+    """10c: llama4-scout-17b at full width, depth cut to 8 of 48 layers:
+    top-1 of 16 experts plus the shared expert, GQA 40/8 at hd 128."""
+    cfg, model = full_model(torch, seed, "llama4_scout_17b",
+                            layers=LLAMA4_LAYERS)
+    pre = family_prefill(torch, cfg, model, seed,
+                         only_flash(cfg.num_layers, cfg.num_layers),
+                         "llama4 prefill", batch=LLAMA4_BATCH,
+                         length=FAMILY_LEN)
+    del model
+    torch.cuda.empty_cache()
+    return {"prefill": summary(pre)}
+
+
+def phase_whisper(torch, seed: int) -> dict:
+    """10d: whisper-medium, 24 encoder and 24 decoder layers: 4 x 1500
+    frames encoded, a 4 x 448 decoder prefill, then greedy decode steps
+    against the cross placeholders (R10)."""
+    cfg, model = full_model(torch, seed, "whisper_medium")
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed + 4)
+    audio = torch.randn(FAMILY_BATCH, cfg.num_source_positions, cfg.d_model,
+                        generator=g, device=DEVICE, dtype=torch.bfloat16)
+    n = cfg.num_layers
+    pre = family_prefill(torch, cfg, model, seed,
+                         only_flash(2 * n + cfg.encoder_layers,
+                                    2 * n + cfg.encoder_layers),
+                         "whisper prefill", batch=FAMILY_BATCH,
+                         length=WHISPER_LEN, extra={"audio_embeds": audio})
+    tokens, logits, kvs = pre["last"]
+    enc = model.encode(audio)
+    caches = cache_from_prefill(torch, model, kvs, FAMILY_BATCH,
+                                WHISPER_LEN + FAMILY_DECODE_STEPS,
+                                enc_out=enc)
+    out = {"prefill": summary(pre),
+           "decode": greedy_decode(torch, cfg, model, caches, logits,
+                                   "whisper decode")}
+    del model, caches, kvs, logits, pre, enc
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_phi3_vision(torch, seed: int) -> dict:
+    """10e: phi3-vision-4b, all 32 layers: 576 patch embeddings fused over
+    the first positions, flash at hd 96 on the simt kernel."""
+    cfg, model = full_model(torch, seed, "phi3_vision_4b")
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed + 5)
+    vision = torch.randn(FAMILY_BATCH, cfg.num_source_positions,
+                         cfg.d_model, generator=g, device=DEVICE,
+                         dtype=torch.bfloat16)
+    pre = family_prefill(torch, cfg, model, seed,
+                         only_flash(cfg.num_layers, 0),
+                         "phi3-vision prefill", batch=FAMILY_BATCH,
+                         length=FAMILY_LEN, extra={"vision_embeds": vision})
+    del model
+    torch.cuda.empty_cache()
+    return {"prefill": summary(pre)}
+
+
+def phi4_prefill_vs_decode(torch, cfg, model, seed: int) -> dict:
+    """10f: a 1024-token prefill's K/V as the decode cache, 64
+    teacher-forced decode steps, their last logits against the prefill of
+    all 1088 tokens; float32 activations over the same weights, as 6d."""
+    import dataclasses
+    from repro_torch.models.model import Model
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    m32 = Model(cfg32, device=DEVICE)
+    m32.load_state_dict(model.state_dict())
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed + 6)
+    total = PHI4_PROMPT + PHI4_DECODE
+    tokens = torch.randint(0, cfg.vocab_size, (1, total), generator=g,
+                           device=DEVICE)
+    reset_model_launches()
+    t0 = time.perf_counter()
+    want, _ = m32(tokens, mode="last_logits")
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = read_model_launches()
+    expect(launches == only_flash(cfg.num_layers, 0),
+           "phi4 float32 prefill launches", launches)
+    _, _, kvs = m32(tokens[:, :PHI4_PROMPT], mode="last_logits",
+                    return_kv=True)
+    caches = cache_from_prefill(torch, m32, kvs, 1, total)
+    t0 = time.perf_counter()
+    for t in range(PHI4_PROMPT, total):
+        logits, caches = m32.decode_step(tokens[:, t:t + 1], caches)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    V = cfg.vocab_size
+    p, d = want[0, 0, :V], logits[0, 0, :V]
+    err = rel_err(torch, p, d)
+    top2 = torch.topk(d, 2).values
+    margin = float(top2[0] - top2[1])
+    log(f"phi4 prefill vs decode: {PHI4_PROMPT}-token prefill as the cache, "
+        f"{PHI4_DECODE} decode steps {decode_s:.3f} s "
+        f"({1e3 * decode_s / PHI4_DECODE:.2f} ms/step), {total}-token "
+        f"prefill {prefill_s:.3f} s (launches {json.dumps(launches)}); "
+        f"argmax {int(p.argmax())} vs {int(d.argmax())}, top-2 margin "
+        f"{margin:.5f}; logits rel err {err:.3e}")
+    expect(err <= PREFILL_DECODE_LOGITS_RTOL, "phi4 prefill vs decode", err)
+    if margin > 2 * err * float(d.abs().max()):
+        expect(int(p.argmax()) == int(d.argmax()), "phi4 prefill and decode "
+               "argmax differ beyond their tolerance")
+    del m32, caches, kvs
+    torch.cuda.empty_cache()
+    return {"prefill_s": prefill_s, "decode_step_ms":
+            1e3 * decode_s / PHI4_DECODE, "logits_rel_err": err,
+            "top2_margin": margin, "launches": launches}
+
+
+def phase_phi4(torch, seed: int) -> dict:
+    """10f: phi4-mini-3b, all 32 layers: a dense decoder at hd 128, full
+    causal attention (no window), GQA 24/8."""
+    cfg, model = full_model(torch, seed, "phi4_mini_3b")
+    pre = family_prefill(torch, cfg, model, seed,
+                         only_flash(cfg.num_layers, cfg.num_layers),
+                         "phi4 prefill", batch=FAMILY_BATCH,
+                         length=FAMILY_LEN)
+    pre.pop("last")
+    out = {"prefill": pre,
+           "long": phi4_prefill_vs_decode(torch, cfg, model, seed)}
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+FAMILY_PATHS = {      # phase 10's model paths: the prefill of each
+    "granite_prefill_4x4096": ("granite", "prefill"),
+    "llama4_8_layers_prefill_2x4096": ("llama4", "prefill"),
+    "whisper_prefill_4x448": ("whisper", "prefill"),
+    "phi3_vision_prefill_4x4096": ("phi3_vision", "prefill"),
+    "phi4_prefill_4x4096": ("phi4", "prefill"),
+    "phi4_prefill_1088_f32": ("phi4", "long"),
+}
+
+
+def phase_families(torch, seed: int) -> dict:
+    """10b-10f, one model on the card at a time, under no_grad."""
+    out = {}
+    for name, fn in (("granite", phase_granite), ("llama4", phase_llama4),
+                     ("whisper", phase_whisper),
+                     ("phi3_vision", phase_phi3_vision),
+                     ("phi4", phase_phi4)):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out[name] = fn(torch, seed)
+        out[name]["wall_s"] = time.perf_counter() - t0
+        log(f"phase 10 {name}: {out[name]['wall_s']:.1f} s; "
+            f"{json.dumps(out[name])}")
+    return out
+
+
 def ptxas_kernels(report: str) -> dict:
     """{mangled kernel name: (registers, spill store bytes)} from
     ``nvcc -Xptxas -v`` output."""
@@ -2469,7 +2895,17 @@ def main() -> int:
     concurrent_launches, concurrent_err = phase_concurrent(
         torch, args.sf, args.seed, card)
     by_path.update(concurrent_launches)
-    phase_done("9 (concurrent runs)", clock)
+    clock = phase_done("9 (concurrent runs)", clock)
+
+    # 10. the model families that reached the port last, and phi4-mini
+    torch.cuda.empty_cache()
+    family_rows = phase_family_kernels(torch, ptxas)
+    if args.log_dir:
+        with open(os.path.join(args.log_dir, "kernels.jsonl"), "a") as f:
+            for row in family_rows:
+                f.write(json.dumps(row) + "\n")
+    families = phase_families(torch, args.seed)
+    phase_done("10 (model families)", clock)
 
     kernels = []
     for name, ops_ in (("masked_segment_sum", ("sum",)),
@@ -2530,11 +2966,27 @@ def main() -> int:
                    "grad_check": grad_launches[name],
                    "train_launcher": train_launches[name],
                    TRAIN_PATH: training["run_a"]["launches"][name]}
+        family = {path: families[m][k]["launches"][name]
+                  for path, (m, k) in FAMILY_PATHS.items()}
+        by_path.update(family)
+        launches = by_path[main_path]
+        extra = {}
+        if name == "flash_attention":
+            # phase 10 is this slice's path: its launches, and 10a's cases
+            krows = krows + family_rows
+            launches = sum(family.values())
+            extra["phase10_wgmma"] = sum(
+                families[m][k]["launches"]["flash_wgmma"]
+                for m, k in FAMILY_PATHS.values())
+            hd96 = family_rows[0]
+            extra["hd96"] = {k: hd96[k] for k in (
+                "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "max_abs_err", "kernel")}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": by_path[main_path],
-            "launches_by_path": by_path,
+            "launches": launches,
+            "launches_by_path": by_path, **extra,
             "max_abs_err": max(r["max_abs_err"] for r in krows
                                if r["op"] == name),
             "ms": row["ms"], "plain_ms": row["plain_ms"],

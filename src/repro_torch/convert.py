@@ -14,7 +14,9 @@ Model parameters cross the same way. :func:`params_from_jax` turns
 ``repro``'s parameter tree (numpy arrays, or the tensors of a snapshot)
 into the port's ``state_dict``: ``repro`` stacks the layers of each
 position of the block pattern (``slots``) and keeps the remainder layers
-apart (``tail``); the port has one entry per layer, in order.
+apart (``tail``), and stacks the audio encoder's layers
+(``encoder.layers``); the port has one entry per layer, in order. A
+mixture of experts keeps its (E, ...) expert weights stacked in both.
 :func:`params_from_store` does the same for a parameter snapshot that
 ``repro``'s ``CheckpointManager`` published, leaf by leaf.
 """
@@ -111,7 +113,28 @@ def params_from_jax(params: Mapping[str, Any], cfg: ModelConfig
         for name, leaf in _block_items(params[where][j]):
             t = _tensor(leaf)
             out[f"layers.{i}.{name}"] = t if rep is None else t[rep]
+    if cfg.encoder_layers:          # stacked over the encoder's layers
+        enc = params["encoder"]
+        for name, leaf in _block_items(enc["layers"]):
+            t = _tensor(leaf)
+            for i in range(cfg.encoder_layers):
+                out[f"encoder.layers.{i}.{name}"] = t[i]
+        out["encoder.final_norm.scale"] = _tensor(
+            enc["final_norm"]["scale"])
     return out
+
+
+def _tree_of(module) -> dict:
+    """``module``'s parameter names as a nested dict (placeholder
+    leaves)."""
+    tree: dict = {}
+    for name, _p in module.named_parameters():
+        *path, leaf = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = 0
+    return tree
 
 
 def _jax_param_layout(cfg: ModelConfig) -> dict:
@@ -127,15 +150,11 @@ def _jax_param_layout(cfg: ModelConfig) -> dict:
                                "tail": [None] * cfg.n_tail_layers}
     for i, layer in enumerate(model.layers):
         where, j, _ = _layer_source(cfg, i)
-        tree: dict = {}
-        for name, _p in layer.named_parameters():
-            *path, leaf = name.split(".")
-            node = tree
-            for part in path:
-                node = node.setdefault(part, {})
-            node[leaf] = 0
-        blocks[where][j] = tree
+        blocks[where][j] = _tree_of(layer)
     layout.update(blocks)
+    if cfg.encoder_layers:
+        layout["encoder"] = {"layers": _tree_of(model.encoder.layers[0]),
+                             "final_norm": {"scale": 0}}
     return layout
 
 

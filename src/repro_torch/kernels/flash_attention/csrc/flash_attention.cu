@@ -4,8 +4,8 @@
 // Replaces the Pallas TPU kernel of repro/kernels/flash_attention/kernel.py:
 //   flash_attention_kernel (body _fa_body) -> repro_flash_attention_wgmma
 //     (bf16 at hd 64, 128, 256: wgmma and TMA, below) and
-//     repro_flash_attention (float32 at every hd, bf16 at hd 16 and 32:
-//     the float32 FMA units, described first). kernel.py picks one
+//     repro_flash_attention (float32 at every hd, bf16 at hd 16, 32 and
+//     96: the float32 FMA units, described first). kernel.py picks one
 //     through an explicit table.
 //
 // What it computes: for q (B, H, Sq, hd) and k, v (B, K, Skv, hd) with
@@ -35,7 +35,8 @@
 // version does its products on the float32 FMA units from shared memory
 // (no tensor cores, no TMA, one CTA per SM at hd=256 for its 211 KB of
 // shared memory), so it sits far above that bound: it serves float32 and
-// the small head dims, where the wgmma kernel below does not apply.
+// the head dims where the wgmma kernel below does not apply (16, 32, and
+// 96: phi3-vision's, CPT = 6 columns a thread, rows of 100 floats).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -248,8 +249,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
   return cudaGetLastError();
 }
 
-// float32 at every head dim; bf16 at 16 and 32 only (the wgmma kernel
-// takes bf16 at 64, 128 and 256)
+// float32 at every head dim; bf16 at 16, 32 and 96 only (the wgmma kernel
+// takes bf16 at 64, 128 and 256; its TMA boxes are 64 columns wide, and 96
+// is not a multiple of them)
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int B, int H, int K,
                      int sq, int skv, int hd, int causal, int window, float scale,
@@ -258,6 +260,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int
   switch (hd) {
     case 16: return launch<T, 16>(q, k, v, out, B, H, K, sq, skv, causal, window, scale, stream);
     case 32: return launch<T, 32>(q, k, v, out, B, H, K, sq, skv, causal, window, scale, stream);
+    case 96: return launch<T, 96>(q, k, v, out, B, H, K, sq, skv, causal, window, scale, stream);
     default: break;
   }
   if constexpr (f32) {
@@ -718,8 +721,8 @@ cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v, void* ou
 extern "C" {
 
 // q, out: (B, H, Sq, hd); k, v: (B, K, Skv, hd); contiguous, all of one
-// dtype: 0 = float32 (hd in {16, 32, 64, 128, 256}), 1 = bfloat16 (hd in
-// {16, 32}). K | H.
+// dtype: 0 = float32 (hd in {16, 32, 64, 96, 128, 256}), 1 = bfloat16 (hd
+// in {16, 32, 96}). K | H.
 // window <= 0: no window. Returns the CUDA error of the launch (0 =
 // success); Sq == 0 or B * H == 0 launches nothing.
 int repro_flash_attention(const void* q, const void* k, const void* v, void* out, int dtype, int B,

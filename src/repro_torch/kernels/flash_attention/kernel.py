@@ -8,7 +8,9 @@ output and launches on PyTorch's current stream.
 Two kernels compute the same function; :data:`KERNELS` says which one
 takes a (dtype, head dim), and anything outside it raises: ``wgmma``
 (bf16 at hd 64/128/256, tensor cores fed by TMA) and ``simt`` (float32
-at every head dim, bf16 at hd 16/32, the float32 FMA units).
+at every head dim, bf16 at hd 16/32/96, the float32 FMA units). hd 96,
+phi3-vision's, goes to ``simt`` in bf16 too: the wgmma kernel's TMA
+boxes are 64 columns wide.
 """
 from __future__ import annotations
 
@@ -24,11 +26,11 @@ __all__ = ["build", "flash_attention", "kernel_for", "SOURCE", "HEAD_DIMS",
            "KERNELS"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 # (dtype, head dim) -> the kernel that takes it; nothing else is taken
 KERNELS = {
     **{(torch.float32, hd): "simt" for hd in HEAD_DIMS},
-    (torch.bfloat16, 16): "simt", (torch.bfloat16, 32): "simt",
+    **{(torch.bfloat16, hd): "simt" for hd in (16, 32, 96)},
     **{(torch.bfloat16, hd): "wgmma" for hd in (64, 128, 256)},
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

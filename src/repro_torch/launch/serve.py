@@ -49,7 +49,8 @@ def main(argv=None) -> int:
     cfg = get_smoke_config(args.arch)
     if cfg.encoder_layers:
         print(f"[serve] {args.arch}: enc-dec serving needs per-request "
-              "encoder features; not ported yet")
+              "encoder features; use "
+              "repro_torch/examples/transactional_training.py")
         return 0
 
     device = torch.device(args.device)

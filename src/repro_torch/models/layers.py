@@ -56,7 +56,7 @@ class ParamModule(nn.Module):
     Parameters require gradients, as any module's: a serving caller
     runs the model under ``torch.no_grad()`` so that it builds no graph.
     ``p["name"]`` and ``"name" in p`` work as on ``repro``'s parameter
-    dicts.
+    dicts, for a parameter or a nested module (a subtree).
     """
 
     def __init__(self, specs: Mapping[str, tuple], device=None):
@@ -71,7 +71,7 @@ class ParamModule(nn.Module):
         return getattr(self, name)
 
     def __contains__(self, name: str) -> bool:
-        return name in self._parameters
+        return name in self._parameters or name in self._modules
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> None:
@@ -179,17 +179,22 @@ def attention_params(cfg: ModelConfig) -> dict[str, tuple]:
     return specs
 
 
-def _project_qkv(p: Params, x, cfg: ModelConfig, positions):
-    """q (B, H, S, hd), k and v (B, K, S, hd), RoPE'd at ``positions``."""
+def _project_qkv(p: Params, x, xkv, cfg: ModelConfig, positions,
+                 kv_positions, *, use_rope: bool):
+    """q (B, H, S, hd) from ``x``; k and v (B, K, Skv, hd) from ``xkv``;
+    RoPE'd at ``positions`` and ``kv_positions`` when ``use_rope``."""
     B, S, _ = x.shape
+    skv = xkv.shape[1]
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = mm(x, p["wq"])
     if "bq" in p:
         q = q + p["bq"]
-    k = mm(x, p["wk"]).reshape(B, S, K, hd)
-    v = mm(x, p["wv"]).reshape(B, S, K, hd)
-    q = rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    q = q.reshape(B, S, H, hd)
+    k = mm(xkv, p["wk"]).reshape(B, skv, K, hd)
+    v = mm(xkv, p["wv"]).reshape(B, skv, K, hd)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, kv_positions, cfg.rope_theta)
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
 
@@ -202,21 +207,28 @@ def _out_proj(p: Params, o):
 
 def attention_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                       kind: str = "attn", positions=None,
+                      encoder_out: torch.Tensor | None = None,
                       return_kv: bool = False):
     """Prefill attention through the flash kernel. kind: attn | local
-    (sliding window of ``cfg.local_window``)."""
-    if kind not in ("attn", "local"):
-        raise NotImplementedError(
-            f"attention kind {kind!r}: cross attention belongs to the "
-            f"encoder-decoder models, not ported yet (ROADMAP Queue 1 "
-            f"item 5)")
+    (sliding window of ``cfg.local_window``) | cross (K/V from
+    ``encoder_out``, no RoPE, not causal: Skv is the encoder's length)."""
+    if kind not in ("attn", "local", "cross"):
+        raise ValueError(f"unknown attention kind {kind!r}")
+    cross = kind == "cross"
+    if cross and encoder_out is None:
+        raise ValueError("cross attention needs encoder_out")
     B, S, _ = x.shape
+    xkv = encoder_out if cross else x
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    kv_positions = (torch.arange(xkv.shape[1], device=x.device)[None, :]
+                    if cross else positions)
+    q, k, v = _project_qkv(p, x, xkv, cfg, positions, kv_positions,
+                           use_rope=not cross)
     k, v = k.contiguous(), v.contiguous()
     window = cfg.local_window if kind == "local" else None
-    out = flash_attention(q.contiguous(), k, v, causal=True, window=window)
+    out = flash_attention(q.contiguous(), k, v, causal=not cross,
+                          window=window)
     out = _out_proj(p, out.transpose(1, 2).reshape(
         B, S, cfg.num_heads * cfg.head_dim))
     return (out, (k, v)) if return_kv else out
@@ -238,7 +250,8 @@ def attention_decode(p: Params, x: torch.Tensor, cache: dict,
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     pos = int(cache["len"])
     positions = torch.full((B, 1), pos, device=x.device)
-    q, k_new, v_new = _project_qkv(p, x, cfg, positions)
+    q, k_new, v_new = _project_qkv(p, x, x, cfg, positions, positions,
+                                   use_rope=kind != "cross")
     ck, cv = cache["k"], cache["v"]
     smax = ck.shape[2]
     ins = pos % smax

@@ -23,8 +23,10 @@ respect to them. Where ``repro`` jits the step, the port runs it eagerly:
 the model kernels' wrappers carry their own backward
 (``kernels/autograd.py``). ``repro``'s flash tile sizes (``block_q``,
 ``block_kv``) and its unused ``log_every`` have no counterpart: the
-port's flash kernel picks its own tiles. There is no MoE, audio or
-vision input here: the port's model does not run those families yet.
+port's flash kernel picks its own tiles. A MoE model's load-balancing
+loss enters the loss at ``aux_weight``; the audio and vision families
+take their stub embeddings as ``extra`` (``loss_fn``) or as the train
+step's trailing arguments named by ``extra_spec``, as in ``repro``.
 """
 from __future__ import annotations
 
@@ -127,15 +129,16 @@ def _bind(model: Model, params: Params) -> None:
 
 
 def loss_fn(params: Params, cfg: ModelConfig, inputs, targets, *,
-            z_loss: float, aux_weight: float, remat=None,
+            z_loss: float, aux_weight: float, remat=None, extra=None,
             loss_chunk: int = 512, model: Model | None = None):
     """Chunked cross-entropy: the (B, S, V) logits are never whole — the
     LM head and CE run per ``loss_chunk`` slice of the sequence, each
-    recomputed in the backward pass. ``model`` is the module ``params``
-    are bound into (a shell on ``meta`` by default)."""
+    recomputed in the backward pass. ``extra`` holds the model's other
+    inputs (``audio_embeds``, ``vision_embeds``). ``model`` is the module
+    ``params`` are bound into (a shell on ``meta`` by default)."""
     model = model if model is not None else Model(cfg, device="meta")
     _bind(model, params)
-    hidden, aux = model(inputs, mode="hidden", remat=remat)
+    hidden, aux = model(inputs, mode="hidden", remat=remat, **(extra or {}))
     hidden = _Bf16GradBarrier.apply(hidden)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     B, S, _ = hidden.shape
@@ -159,17 +162,18 @@ def loss_fn(params: Params, cfg: ModelConfig, inputs, targets, *,
 
 def make_grad_fn(cfg: ModelConfig, tc: TrainConfig, *,
                  model: Model | None = None) -> Callable:
-    """``grad_fn(params, inputs, targets) -> ((loss, parts), grads)``:
+    """``grad_fn(params, inputs, targets, extra=None) -> ((loss, parts),
+    grads)``:
     ``jax.value_and_grad(loss_fn, has_aux=True)`` of ``repro``'s step;
     ``grads`` has the params' names and dtypes."""
     model = model if model is not None else Model(cfg, device="meta")
 
-    def grad_fn(params: Params, inputs, targets):
+    def grad_fn(params: Params, inputs, targets, extra=None):
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params.items()}
         loss, parts = loss_fn(leaves, cfg, inputs, targets,
                               z_loss=tc.z_loss, aux_weight=tc.aux_weight,
-                              remat=tc.remat, model=model)
+                              remat=tc.remat, extra=extra, model=model)
         grads = torch.autograd.grad(loss, list(leaves.values()),
                                     allow_unused=True,
                                     materialize_grads=True)
@@ -180,18 +184,22 @@ def make_grad_fn(cfg: ModelConfig, tc: TrainConfig, *,
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
-                    tc: TrainConfig, *, model: Model | None = None
-                    ) -> Callable:
-    """``train_step(params, opt_state, inputs, targets) -> (new_params,
-    new_opt_state, metrics)``, ``repro``'s step: with ``tc.accum`` = M >
-    1 the batch is split into M microbatches along its first axis, whose
+                    tc: TrainConfig, extra_spec: dict | None = None, *,
+                    model: Model | None = None) -> Callable:
+    """``train_step(params, opt_state, inputs, targets, *extra_args) ->
+    (new_params, new_opt_state, metrics)``, ``repro``'s step: the extra
+    arguments are the model's other inputs, named in order by
+    ``extra_spec``'s keys; with ``tc.accum`` = M > 1 the batch (and each
+    extra input) is split into M microbatches along its first axis, whose
     gradients accumulate in float32 and are divided by M."""
     grad_fn = make_grad_fn(cfg, tc, model=model)
 
-    def train_step(params: Params, opt_state: AdamWState, inputs, targets):
+    def train_step(params: Params, opt_state: AdamWState, inputs, targets,
+                   *extra_args):
+        extra = dict(zip(extra_spec, extra_args)) if extra_spec else None
         M = tc.accum
         if M <= 1:
-            (loss, parts), grads = grad_fn(params, inputs, targets)
+            (loss, parts), grads = grad_fn(params, inputs, targets, extra)
         else:
             B = inputs.shape[0]
             if B % M:
@@ -204,8 +212,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             zero = torch.zeros((), dtype=torch.float32, device=inputs.device)
             loss, parts = zero, {"ce": zero, "z": zero, "aux": zero}
             for i in range(M):
-                (l_i, p_i), g = grad_fn(params, inputs[i * m:(i + 1) * m],
-                                        targets[i * m:(i + 1) * m])
+                rows = slice(i * m, (i + 1) * m)
+                (l_i, p_i), g = grad_fn(
+                    params, inputs[rows], targets[rows],
+                    {k: v[rows] for k, v in extra.items()} if extra
+                    else None)
                 grads = {k: grads[k] + g[k].float() for k in grads}
                 loss = loss + l_i
                 parts = {k: parts[k] + p_i[k] for k in parts}

@@ -79,13 +79,64 @@ def test_plain_matches_model_blockwise_path(B, H, K, S, hd, causal, window,
     np.testing.assert_allclose(got, want, rtol=TOL[dtype], atol=TOL[dtype])
 
 
-@pytest.mark.parametrize("hd", [16, 32, 128, 256])
+@pytest.mark.parametrize("hd", [16, 32, 128, 256, 96])
 def test_head_dims(hd):
     arrays = _qkv(1, 2, 1, 40, hd, seed=hd)
     got = _port(arrays, "float32", causal=True, window=16)
     want = _jax(jflash, arrays, jnp.float32, causal=True, window=16,
                 interpret=True)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _qkv2(B, H, K, sq, skv, hd, seed):
+    r = np.random.default_rng(seed)
+    return (r.standard_normal((B, H, sq, hd)).astype(np.float32),
+            r.standard_normal((B, K, skv, hd)).astype(np.float32),
+            r.standard_normal((B, K, skv, hd)).astype(np.float32))
+
+
+CROSS = [      # (B, H, K, Sq, Skv, hd): whisper's decoder over its encoder
+    (2, 4, 4, 28, 94, 64),        # Sq < Skv, Skv not a multiple of a tile
+    (1, 2, 2, 130, 40, 16),       # Sq > Skv
+    (1, 4, 2, 16, 75, 96),        # GQA at phi3-vision's head dim
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,K,sq,skv,hd", CROSS,
+                         ids=["sq<skv", "sq>skv", "gqa-hd96"])
+def test_plain_matches_at_cross_attention_shapes(B, H, K, sq, skv, hd,
+                                                 dtype):
+    """Non-causal with Sq != Skv (cross attention, and the encoder's
+    bidirectional self attention at Sq = Skv), against the Pallas kernel
+    in interpret mode and the model's blockwise path."""
+    arrays = _qkv2(B, H, K, sq, skv, hd, seed=sq + skv + hd)
+    got = _port(arrays, dtype, causal=False)
+    for fn, kw in ((jflash, dict(block_q=32, block_kv=32, interpret=True)),
+                   (blockwise_attention, dict(block_q=32, block_kv=32))):
+        want = _jax(fn, arrays, getattr(jnp, dtype), causal=False, **kw)
+        np.testing.assert_allclose(got, want, rtol=TOL[dtype],
+                                   atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_at_hd_96_causal(dtype):
+    """phi3-vision's prefill: causal, hd 96, S past one 128-query tile."""
+    arrays = _qkv(1, 4, 4, 200, 96, seed=96)
+    got = _port(arrays, dtype, causal=True)
+    want = _jax(jflash, arrays, getattr(jnp, dtype), causal=True,
+                block_q=64, block_kv=64, interpret=True)
+    np.testing.assert_allclose(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_hd_96_goes_to_the_simt_kernel_in_both_dtypes():
+    """The wgmma kernel's TMA boxes are 64 columns wide: hd 96 takes the
+    float32-FMA kernel, in bfloat16 too."""
+    from repro_torch.kernels.flash_attention import kernel
+    assert 96 in kernel.HEAD_DIMS
+    assert kernel.KERNELS[(torch.bfloat16, 96)] == "simt"
+    assert kernel.KERNELS[(torch.float32, 96)] == "simt"
+    assert kernel.kernel_for(torch.bfloat16, 64) == "wgmma"
 
 
 def test_gqa_reads_kv_head_h_over_group():

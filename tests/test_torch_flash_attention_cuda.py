@@ -112,6 +112,40 @@ def test_wgmma_kernel_at_long_sequences(cuda, hd, causal, window, B, H, K,
                                atol=atol)
 
 
+# the shapes of the model families that reached the card last:
+# phi3-vision's prefill (hd 96, simt in both dtypes), whisper's cross
+# attention (448 decoder positions over 1500 frames) and its encoder's
+# bidirectional self attention, and a ragged Skv in float32
+NEW_SHAPES = [   # (B, H, K, Sq, Skv, hd, causal, dtype)
+    (1, 32, 32, 4096, 4096, 96, True, torch.bfloat16),
+    (1, 32, 32, 4096, 4096, 96, True, torch.float32),
+    (4, 16, 16, 448, 1500, 64, False, torch.bfloat16),
+    (4, 16, 16, 1500, 1500, 64, False, torch.bfloat16),
+    (4, 16, 16, 448, 1499, 64, False, torch.float32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,K,sq,skv,hd,causal,dtype", NEW_SHAPES,
+                         ids=["hd96-bf16", "hd96-f32", "cross", "encoder",
+                              "cross-ragged-f32"])
+def test_cuda_kernel_at_the_new_families_shapes(cuda, B, H, K, sq, skv, hd,
+                                                causal, dtype):
+    q, k, v = _qkv(B, H, K, sq, skv, hd, dtype, cuda, seed=sq + skv + hd)
+    name = kernel.kernel_for(dtype, hd)
+    assert name == ("wgmma" if dtype == torch.bfloat16 and hd != 96
+                    else "simt")
+    by_kernel = ops.flash_attention.launches_by_kernel[name]
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches_by_kernel[name] == by_kernel + 1
+    # float32 over up to 4096 keys: chip_smoke.py's FLASH_TOL
+    rtol, atol = (1e-4, 1e-4) if dtype == torch.float32 else TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
 @pytest.mark.cuda
 def test_wgmma_kernel_is_bitwise_repeatable(cuda):
     q, k, v = _qkv(2, 4, 1, 700, 700, 256, torch.bfloat16, cuda, seed=9)
@@ -125,8 +159,9 @@ def test_dispatch_table_raises_outside_both_kernels():
     table and raises for any other; it needs no card."""
     assert kernel.kernel_for(torch.bfloat16, 256) == "wgmma"
     assert kernel.kernel_for(torch.bfloat16, 32) == "simt"
+    assert kernel.kernel_for(torch.bfloat16, 96) == "simt"
     assert kernel.kernel_for(torch.float32, 256) == "simt"
-    for dtype, hd in ((torch.bfloat16, 48), (torch.float32, 96),
+    for dtype, hd in ((torch.bfloat16, 48), (torch.float32, 80),
                       (torch.bfloat16, 512)):
         with pytest.raises(ValueError, match="head dim"):
             kernel.kernel_for(dtype, hd)
@@ -139,7 +174,7 @@ def test_cuda_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     q, k, v = _qkv(1, 2, 1, 64, 64, 48, torch.float32, cuda)
     with pytest.raises(ValueError, match="head dim"):
         ops.flash_attention(q, k, v)
-    q, k, v = _qkv(1, 2, 1, 64, 64, 96, torch.bfloat16, cuda)
+    q, k, v = _qkv(1, 2, 1, 64, 64, 80, torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="head dim"):
         ops.flash_attention(q, k, v)
     q, k, v = _qkv(1, 2, 1, 64, 64, 32, torch.float16, cuda)

@@ -49,7 +49,7 @@ def test_the_scan_sees_the_package():
             "repro_torch.kernels.flash_attention.ops",
             "repro_torch.kernels.rglru.ops",
             "repro_torch.kernels.mlstm.ops", "repro_torch.kernels.mlstm.kernel",
-            "repro_torch.models.xlstm",
+            "repro_torch.models.xlstm", "repro_torch.models.moe",
             "repro_torch.configs.paper_pipeline",
             "repro_torch.data.pipeline", "repro_torch.data.synthetic",
             "repro_torch.data.tokenizer", "repro_torch.training.optimizer",

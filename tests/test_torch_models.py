@@ -22,6 +22,13 @@ Tolerances, each with its reason:
   vocabulary are often closer than that (measured margins down to
   1e-4), so greedy tokens are held to the reference's near-top set: the
   port's choice is within the logit tolerance of the reference's best.
+  The same activation differences reach a MoE router: where ``repro``'s
+  k-th and (k+1)-th expert probabilities are within ``ROUTE_TIE`` (seen:
+  2e-4 and 5e-4 apart), the port may pick the other expert for that
+  token. Every MoE layer's routing is recorded on both sides; each
+  token routed differently must sit at such a tie, and its logits are
+  left out of the 6e-2 comparison (the float32 cases and
+  ``test_torch_moe.py`` hold the routing exactly).
 """
 import dataclasses
 
@@ -33,12 +40,15 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
+from repro.configs import get_config as jax_config  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
 from repro.models import model as JM  # noqa: E402
+from repro.models import moe as JMoE  # noqa: E402
 from repro.models import rglru as JR  # noqa: E402
-from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs import ARCHS, get_config, get_smoke_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
+from repro_torch.models import moe as TMoE  # noqa: E402
 from repro_torch.models import rglru as TR  # noqa: E402
 from repro_torch.models.model import Model, unsupported  # noqa: E402
 
@@ -49,6 +59,10 @@ S = 48
 DECODE_STEPS = 60
 MAX_LEN = 40          # the attn ring wraps within 60 steps; local is 16
 BF16_TOL = 6e-2
+# a MoE router's k-th and (k+1)-th probabilities closer than this may
+# swap between the packages under bfloat16 activations (which differ by
+# a bfloat16 step, ~2^-8 relative, at the router's input)
+ROUTE_TIE = 2e-3
 
 
 def _t(x):
@@ -204,11 +218,43 @@ def test_rglru_decode_steps_and_state_init():
 # ---------------------------------------------------------------------------
 
 def _models(arch, over, seed=0):
+    """Both packages' models over ``repro``'s parameters; attention
+    biases (zeros at init) are drawn at random, so their use is held."""
     jc, tc = _cfgs(arch, **over)
     jp = JM.init_params(jax.random.PRNGKey(seed), jc)
+    rng = np.random.default_rng(seed + 100)
+
+    def bias(path, leaf):
+        if getattr(path[-1], "key", None) in ("bq", "bo"):
+            return jnp.asarray(rng.standard_normal(leaf.shape) * 0.1,
+                               leaf.dtype)
+        return leaf
+
+    jp = jax.tree_util.tree_map_with_path(bias, jp)
     model = Model(tc, device="cpu")
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jp), tc))
     return jc, tc, jp, model
+
+
+def _extra(cfg, batch, seed):
+    """The front ends' stub inputs, as ``repro``'s ``extra_inputs``
+    shapes them: (B, num_source_positions, d_model) frame embeddings for
+    an encoder, patch embeddings for a VLM; numpy float32."""
+    shape = (batch, cfg.num_source_positions, cfg.d_model)
+    if cfg.encoder_layers:
+        return {"audio_embeds": _x(shape, seed)}
+    if cfg.family == "vlm":
+        return {"vision_embeds": _x(shape, seed)}
+    return {}
+
+
+def _jx(extra, dtype=np.float32):
+    return {k: jnp.asarray(v, dtype) for k, v in extra.items()}
+
+
+def _tx(extra, dtype=np.float32):
+    return {k: _t(np.asarray(jnp.asarray(v, dtype)))
+            for k, v in extra.items()}
 
 
 def _tokens(shape, seed):
@@ -216,11 +262,23 @@ def _tokens(shape, seed):
         np.int32)
 
 
-def _decode_both(jc, jp, model, tokens):
+def _caches(jc, jp, model, batch, extra):
+    """Both packages' decode caches; with an encoder, each layer's cross
+    K/V placeholder sized by the encoding of ``extra``'s audio."""
+    if not jc.encoder_layers:
+        return (JM.init_cache(jc, batch, MAX_LEN),
+                model.init_cache(batch, MAX_LEN))
+    audio = extra["audio_embeds"]
+    jenc = JM.encode(jp, jc, jnp.asarray(audio))
+    tenc = model.encode(_t(np.asarray(audio)))
+    return (JM.init_cache(jc, batch, MAX_LEN, enc_out=jenc),
+            model.init_cache(batch, MAX_LEN, enc_out=tenc))
+
+
+def _decode_both(jc, jp, model, tokens, extra=None):
     """Teacher-force ``tokens`` (B, T) through both decoders; yields the
     two (B, V) logits of each step."""
-    jcache = JM.init_cache(jc, tokens.shape[0], MAX_LEN)
-    tcache = model.init_cache(tokens.shape[0], MAX_LEN)
+    jcache, tcache = _caches(jc, jp, model, tokens.shape[0], extra or {})
     step = jax.jit(lambda c, t: JM.decode_step(jp, jc, t, c))
     for s in range(tokens.shape[1]):
         t = tokens[:, s:s + 1]
@@ -229,23 +287,46 @@ def _decode_both(jc, jp, model, tokens):
         yield got[:, -1], np.asarray(want)[:, -1]
 
 
-@pytest.mark.parametrize("arch,over", [("recurrentgemma_9b", RG),
-                                       ("phi4_mini_3b", {}),
-                                       ("xlstm_350m", XL)],
-                         ids=["recurrentgemma", "phi4-mini", "xlstm"])
+# the model families: every block kind, a mixture of experts (top-2 of
+# 4, and top-1 with a shared expert), the audio encoder with cross
+# attention, and the VLM's early fusion
+MODEL_CASES = [("recurrentgemma_9b", RG), ("phi4_mini_3b", {}),
+               ("xlstm_350m", XL), ("granite_moe_3b", {}),
+               ("llama4_scout_17b", {}), ("whisper_medium", {}),
+               ("phi3_vision_4b", {})]
+MODEL_IDS = ["recurrentgemma", "phi4-mini", "xlstm", "granite-moe",
+             "llama4", "whisper", "phi3-vision"]
+
+
+def _aux_matches(got, want, cfg):
+    """The summed load-balancing loss: repro's for a MoE (float32 sums
+    of the same terms, rtol 1e-6), else 0."""
+    assert got.dtype == torch.float32 and got.shape == ()
+    if cfg.moe is None:
+        assert float(got) == float(want) == 0.0
+    else:
+        assert float(got) > 0
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+
+
+@pytest.mark.parametrize("arch,over", MODEL_CASES, ids=MODEL_IDS)
 @torch.no_grad()            # the model serves: no graph
 def test_forward_float32(arch, over):
     jc, tc, jp, model = _models(arch, {**over, **F32})
     tok = _tokens((2, S), 1)
-    want, _ = jax.jit(lambda t: JM.forward(jp, jc, t))(jnp.asarray(tok))
-    got, aux = model(torch.from_numpy(tok))
-    assert got.dtype == torch.float32 and float(aux) == 0.0
+    extra = _extra(tc, 2, 11)
+    want, waux = jax.jit(lambda t, e: JM.forward(jp, jc, t, **e))(
+        jnp.asarray(tok), _jx(extra))
+    got, aux = model(torch.from_numpy(tok), **_tx(extra))
+    assert got.dtype == torch.float32
+    _aux_matches(aux, waux, tc)
     _close(got, want, 1e-4)
     want_last, _, (kv_scan, kv_tail) = jax.jit(
-        lambda t: JM.forward(jp, jc, t, mode="last_logits",
-                             return_kv=True))(jnp.asarray(tok))
+        lambda t, e: JM.forward(jp, jc, t, mode="last_logits",
+                                return_kv=True, **e))(jnp.asarray(tok),
+                                                      _jx(extra))
     got_last, _, kvs = model(torch.from_numpy(tok), mode="last_logits",
-                             return_kv=True)
+                             return_kv=True, **_tx(extra))
     assert got_last.shape == (2, 1, tc.padded_vocab)
     _close(got_last, want_last, 1e-4)
     # repro returns K/V per pattern slot, stacked over the scanned repeats,
@@ -267,48 +348,106 @@ def test_forward_float32(arch, over):
         _close(kv[1], wv, 1e-4)
 
 
-@pytest.mark.parametrize("arch,over", [("recurrentgemma_9b", RG),
-                                       ("phi4_mini_3b", {}),
-                                       ("xlstm_350m", XL)],
-                         ids=["recurrentgemma", "phi4-mini", "xlstm"])
+@pytest.mark.parametrize("arch,over", MODEL_CASES, ids=MODEL_IDS)
 @torch.no_grad()            # the model serves: no graph
 def test_decode_steps_float32(arch, over):
     jc, tc, jp, model = _models(arch, {**over, **F32}, seed=1)
     tok = _tokens((2, DECODE_STEPS), 2)
-    for got, want in _decode_both(jc, jp, model, tok):
+    for got, want in _decode_both(jc, jp, model, tok, _extra(tc, 2, 12)):
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-3)
 
 
-@pytest.mark.parametrize("arch,over", [("recurrentgemma_9b", RG),
-                                       ("phi4_mini_3b", {}),
-                                       ("xlstm_350m", XL)],
-                         ids=["recurrentgemma", "phi4-mini", "xlstm"])
+def _record_routes(monkeypatch) -> dict:
+    """Record every MoE layer's routing in both packages, in call order:
+    ``repro``'s input and router (its model must run unjitted to give
+    them), the port's chosen experts."""
+    rec = {"repro": [], "port": []}
+    jforward, troute = JMoE.moe_forward, TMoE.route
+
+    def jwrap(p, x, cfg):
+        rec["repro"].append((np.asarray(x.astype(jnp.float32)),
+                             np.asarray(p["router"])))
+        return jforward(p, x, cfg)
+
+    def twrap(p, xg, cfg):
+        out = troute(p, xg, cfg)
+        rec["port"].append(out[1].numpy())
+        return out
+
+    monkeypatch.setattr(JMoE, "moe_forward", jwrap)
+    monkeypatch.setattr(TMoE, "route", twrap)
+    return rec
+
+
+def _tied_flips(rec: dict, cfg) -> set:
+    """Pairs the calls recorded since the last read. Every token that the
+    port routes unlike ``repro`` must sit at a tie of ``repro``'s router
+    (k-th and (k+1)-th probabilities within ``ROUTE_TIE``); returns those
+    tokens' (b, s)."""
+    assert len(rec["repro"]) == len(rec["port"]) > 0
+    k = cfg.moe.experts_per_token
+    flipped = set()
+    for (x, router), idx in zip(rec["repro"], rec["port"]):
+        B, S, _ = x.shape
+        probs = jax.nn.softmax(jnp.einsum("bsd,de->bse", x, router), -1)
+        want = np.asarray(jax.lax.top_k(probs, k)[1])
+        g = TMoE.group_size(cfg, S)
+        got = idx.reshape(S // g, B, g, k).transpose(1, 0, 2, 3).reshape(
+            B, S, k)
+        for b, s in np.argwhere((got != want).any(-1)):
+            p = np.sort(np.asarray(probs[b, s]))[::-1]
+            assert p[k - 1] - p[k] < ROUTE_TIE, (b, s, p)
+            flipped.add((int(b), int(s)))
+    rec["repro"].clear()
+    rec["port"].clear()
+    return flipped
+
+
+@pytest.mark.parametrize("arch,over", MODEL_CASES, ids=MODEL_IDS)
 @torch.no_grad()            # the model serves: no graph
-def test_bfloat16_config_logits_and_greedy_tokens(arch, over):
+def test_bfloat16_config_logits_and_greedy_tokens(arch, over, monkeypatch):
     jc, tc, jp, model = _models(arch, over, seed=2)
     assert tc.dtype == tc.param_dtype == "bfloat16"
     assert model.embed.dtype == torch.bfloat16
+    moe = tc.moe is not None
+    rec = _record_routes(monkeypatch) if moe else None
+    # repro runs unjitted where its MoE routing is recorded
+    jit = (lambda f: f) if moe else jax.jit
     tok = _tokens((2, S), 3)
-    want, _ = jax.jit(lambda t: JM.forward(jp, jc, t))(jnp.asarray(tok))
-    got, _ = model(torch.from_numpy(tok))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
-                               atol=BF16_TOL)
+    extra = _extra(tc, 2, 13)
+    with jax.disable_jit(moe):
+        want, waux = jit(lambda t, e: JM.forward(jp, jc, t, **e))(
+            jnp.asarray(tok), _jx(extra, jnp.bfloat16))
+    got, aux = model(torch.from_numpy(tok), **_tx(extra, jnp.bfloat16))
+    same = np.ones((2, S), bool)
+    if moe:      # routed from bfloat16 activations
+        for b, s in _tied_flips(rec, tc):
+            same[b, s] = False
+        assert same.mean() > 0.9, same      # ties are rare
+        np.testing.assert_allclose(float(aux), float(waux), rtol=BF16_TOL)
+    np.testing.assert_allclose(got.numpy()[same], np.asarray(want)[same],
+                               rtol=0, atol=BF16_TOL)
     # greedy decoding from a prompt, the reference's tokens fed to both
     prompt = _tokens((2, 8), 4)
-    jcache = JM.init_cache(jc, 2, MAX_LEN)
-    tcache = model.init_cache(2, MAX_LEN)
-    step = jax.jit(lambda c, t: JM.decode_step(jp, jc, t, c))
+    jcache, tcache = _caches(jc, jp, model, 2, extra)
+    step = jit(lambda c, t: JM.decode_step(jp, jc, t, c))
     nxt = prompt[:, :1]
     for s in range(8 + 16):
         t = prompt[:, s:s + 1] if s < 8 else nxt
-        want, jcache = step(jcache, jnp.asarray(t))
+        with jax.disable_jit(moe):
+            want, jcache = step(jcache, jnp.asarray(t))
         got, tcache = model.decode_step(torch.from_numpy(t), tcache)
-        w = np.asarray(want)[:, -1, :tc.vocab_size]
-        g = got[:, -1, :tc.vocab_size].numpy()
+        rows = np.ones(2, bool)
+        if moe:
+            for b, _ in _tied_flips(rec, tc):
+                rows[b] = False
+        w = np.asarray(want)[rows, -1, :tc.vocab_size]
+        g = got[rows, -1, :tc.vocab_size].numpy()
         np.testing.assert_allclose(g, w, rtol=0, atol=BF16_TOL)
         pick = g.argmax(-1)
-        assert (w[np.arange(2), pick] >= w.max(-1) - BF16_TOL).all()
-        nxt = w.argmax(-1)[:, None].astype(np.int32)
+        assert (w[np.arange(len(w)), pick] >= w.max(-1) - BF16_TOL).all()
+        nxt = np.asarray(want)[:, -1, :tc.vocab_size].argmax(-1)[:, None] \
+            .astype(np.int32)
 
 
 def test_params_from_jax_unstacks_layers_in_order():
@@ -391,10 +530,85 @@ def test_model_lives_on_the_card_unless_asked_for_the_cpu():
     assert Model(cfg, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("arch", ["granite_moe_3b", "whisper_medium",
-                                  "phi3_vision_4b"])
-def test_unported_families_raise(arch):
-    cfg = get_smoke_config(arch)
-    assert unsupported(cfg) is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(cfg, device="meta")
+@pytest.mark.parametrize("arch", ARCHS)
+def test_every_config_builds(arch):
+    """Every config of ARCHS builds at full size on ``meta``, with as many
+    parameters as ``repro``'s tree (``jax.eval_shape``)."""
+    cfg = get_config(arch)
+    assert unsupported(cfg) is None
+    model = Model(cfg, device="meta")
+    shapes = jax.eval_shape(lambda k: JM.init_params(k, jax_config(arch)),
+                            jax.random.PRNGKey(0))
+    want = sum(int(np.prod(x.shape)) for x in jax.tree.leaves(shapes))
+    assert sum(p.numel() for p in model.parameters()) == want
+
+
+@pytest.mark.parametrize("arch", ["granite_moe_3b", "whisper_medium"])
+def test_params_from_jax_carries_experts_and_the_encoder(arch):
+    jc, tc, jp, model = _models(arch, F32)
+    sd = model.state_dict()
+    np.testing.assert_array_equal(sd["embed"].numpy(), np.asarray(jp["embed"]))
+    if arch == "granite_moe_3b":
+        # one scanned slot: layer 1 is its second repeat; experts stay
+        # stacked over E
+        ffn = jp["slots"][0]["ffn"]
+        E = tc.moe.num_experts
+        assert sd["layers.1.ffn.experts.w_gate"].shape == (E, 64, 128)
+        for name, want in (("router", ffn["router"][1]),
+                           ("experts.w_down", ffn["experts"]["w_down"][1])):
+            np.testing.assert_array_equal(sd[f"layers.1.ffn.{name}"].numpy(),
+                                          np.asarray(want))
+        assert sd["layers.0.ffn.router"].dtype == torch.float32
+    else:
+        enc = jp["encoder"]
+        for i in range(tc.encoder_layers):
+            for name in ("attn.wq", "attn.bq", "ffn.w_up", "norm2.scale"):
+                a, b = name.split(".")
+                np.testing.assert_array_equal(
+                    sd[f"encoder.layers.{i}.{name}"].numpy(),
+                    np.asarray(enc["layers"][a][b][i]))
+        np.testing.assert_array_equal(sd["encoder.final_norm.scale"].numpy(),
+                                      np.asarray(enc["final_norm"]["scale"]))
+        np.testing.assert_array_equal(
+            sd["layers.1.cross.bo"].numpy(),
+            np.asarray(jp["slots"][0]["cross"]["bo"][1]))
+        assert "layers.0.norm_x.scale" in sd
+
+
+@torch.no_grad()            # the model serves: no graph
+def test_whisper_decode_ignores_the_audio_as_in_repro():
+    """R10: nothing fills the cross K/V that init_cache places, so a
+    decode step's cross sublayer adds 0 in both packages, and two
+    different audio inputs give the same decode logits; the prefill
+    reads the audio."""
+    jc, tc, jp, model = _models("whisper_medium", F32, seed=4)
+    tok = _tokens((2, 12), 5)
+    logits = []
+    for seed in (20, 21):
+        extra = _extra(tc, 2, seed)
+        steps = list(_decode_both(jc, jp, model, tok, extra))
+        for got, want in steps:
+            np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-3)
+        logits.append((np.stack([g.numpy() for g, _ in steps]),
+                       np.stack([w for _, w in steps]),
+                       model(torch.from_numpy(tok), **_tx(extra))[0]))
+    (tg0, jw0, pre0), (tg1, jw1, pre1) = logits
+    np.testing.assert_array_equal(tg0, tg1)
+    np.testing.assert_array_equal(jw0, jw1)
+    assert float((pre0 - pre1).abs().max()) > 1e-2
+
+
+@torch.no_grad()            # the model serves: no graph
+def test_vision_embeds_replace_the_first_positions():
+    """Early fusion writes the patches over the first P embeddings: the
+    tokens' own embeddings given as patches change nothing, other
+    patches move every position (each sees them through its past)."""
+    jc, tc, jp, model = _models("phi3_vision_4b", F32, seed=5)
+    tok = torch.from_numpy(_tokens((1, S), 6))
+    P = tc.num_source_positions
+    plain, _ = model(tok, mode="hidden")
+    same, _ = model(tok, mode="hidden", vision_embeds=model._embed(tok)[:, :P])
+    assert torch.equal(same, plain)
+    vis = torch.from_numpy(_extra(tc, 1, 22)["vision_embeds"])
+    fused, _ = model(tok, mode="hidden", vision_embeds=vis)
+    assert float((fused - plain).abs().amax(-1).min()) > 0

@@ -53,7 +53,7 @@ def _prompts(n, vocab, seed=0):
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma_9b", "phi4_mini_3b",
-                                  "xlstm_350m"])
+                                  "xlstm_350m", "llama4_scout_17b"])
 def test_serve_loop_generates_the_same_tokens(arch):
     jc = dataclasses.replace(jax_smoke(arch), **F32)
     tc = dataclasses.replace(get_smoke_config(arch), **F32)
@@ -135,14 +135,45 @@ def test_reads_a_checkpoint_that_repro_wrote(tmp_path, dtype):
     assert leaves[0].dtype == torch.int32 and int(leaves[0]) == 0   # step
 
 
+@pytest.mark.parametrize("arch", ["granite_moe_3b", "whisper_medium"])
+def test_reads_a_moe_and_an_encoder_checkpoint_that_repro_wrote(tmp_path,
+                                                                arch):
+    """A MoE's nested ``ffn`` tree (router, stacked experts) and the
+    audio encoder's stacked layers, leaf by leaf from a snapshot."""
+    jc = jax_smoke(arch)
+    tc = get_smoke_config(arch)
+    jp = JM.init_params(jax.random.PRNGKey(4), jc)
+    jcatalog = JCatalog(JFileStore(str(tmp_path)))
+    JCkpt(jcatalog).save(step=3, params=jp, opt_state=jadamw_init(jp),
+                         data_state={"epoch": 0}, metrics={})
+    key = jcatalog.read_table("main", "params")
+    got = params_from_store(FileStore(str(tmp_path)), key, tc)
+    want = params_from_jax(jax.tree.map(np.asarray, jp), tc)
+    assert sorted(got) == sorted(want)
+    assert any(".ffn.experts." in k for k in got) == (tc.moe is not None)
+    assert any(k.startswith("encoder.") for k in got) == bool(
+        tc.encoder_layers)
+    for k in want:
+        assert got[k].dtype == want[k].dtype
+        assert torch.equal(got[k], want[k]), k
+    Model(tc, device="meta").load_state_dict(got, assign=True)
+
+
 @pytest.mark.parametrize("arch", ["recurrentgemma_9b", "phi4_mini_3b",
-                                  "xlstm_350m"])
+                                  "xlstm_350m", "granite_moe_3b",
+                                  "phi3_vision_4b"])
 def test_launcher_runs_on_the_cpu(arch, capsys):
     assert serve.main(["--arch", arch, "--device", "cpu", "--requests", "4",
                        "--max-new", "4"]) == 0
     out = capsys.readouterr().out
     assert "pinned replica to tag serving/v0" in out
     assert "completed 4 requests" in out
+
+
+def test_launcher_skips_enc_dec_serving_with_repros_reason(capsys):
+    assert serve.main(["--arch", "whisper_medium", "--device", "cpu"]) == 0
+    assert "enc-dec serving needs per-request encoder features" in \
+        capsys.readouterr().out
 
 
 def test_launcher_defaults_to_repros_arch(monkeypatch, capsys):

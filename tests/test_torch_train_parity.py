@@ -1,6 +1,8 @@
 """One train step of the port (``repro_torch/training``) against
 ``repro``'s, on the CPU, on the float32 smoke configs of xlstm-350m,
-recurrentgemma-9b and phi4-mini-3b.
+recurrentgemma-9b and phi4-mini-3b; and one step each of granite-moe-3b
+and llama4-scout-17b (the MoE's aux loss live), whisper-medium and
+phi3-vision-4b (their stub embeddings as the step's extra inputs).
 
 The same numpy batch and the same parameters (drawn by ``repro``'s
 initializer, carried over by ``convert.params_from_jax``, which maps a
@@ -28,6 +30,15 @@ cases in brackets):
   whole softmax on the port and through ``repro``'s tile-recomputing
   flash backward ([1.1e-4]); the recurrences in another order
   ([1e-6]).
+- MoE gradients: 2^-8 of the leaf's max ([1.2e-3]). ``repro``'s
+  dispatch rounds the tokens to bfloat16 even in a float32 config, so
+  the backward rounds their cotangents to bfloat16 at every MoE layer;
+  where the two packages' float32 cotangents straddle a rounding
+  boundary, an element moves by a bfloat16 step (2^-8 of itself), and
+  carries that to every leaf below; the gradient norm moves with them
+  (held at the same 2^-8; [1.2e-5]). A MoE's updated parameters are
+  held to ``UPDATE_ABS`` where the gradient is also at least twice that
+  tolerance times the leaf's max (elsewhere its sign may differ).
 - each updated parameter: 1e-5 absolute where the leaf's gradient is
   at least 1e-6 in magnitude. Adam's first step moves a parameter by
   lr * g / (|g| + eps), so where |g| is within a few eps (1e-8) of zero
@@ -57,6 +68,7 @@ ARCHS = ["xlstm_350m", "recurrentgemma_9b", "phi4_mini_3b"]
 B, S = 4, 32
 LR = 1e-3
 GRAD_REL, UPDATE_ABS, WELL_CONDITIONED = 5e-4, 1e-5, 1e-6
+MOE_GRAD_REL = 2.0 ** -8
 VARIANTS = [(1, None), (2, None), (4, None), (1, "full"), (1, "dots")]
 
 
@@ -181,6 +193,83 @@ def test_accumulated_gradients_equal_the_full_batch(case):
                              for g in case["grads"].values())))
     for M, n in norms.items():
         np.testing.assert_allclose(n, want, rtol=1e-5, err_msg=str(M))
+
+
+NEW_FAMILIES = [("granite_moe_3b", 1), ("whisper_medium", 2),
+                ("phi3_vision_4b", 1), ("llama4_scout_17b", 2)]
+
+
+@pytest.mark.parametrize("arch,accum", NEW_FAMILIES,
+                         ids=[a for a, _ in NEW_FAMILIES])
+def test_one_step_of_the_new_families_matches_repro(arch, accum):
+    """A MoE (aux_weight live: the load-balancing loss is in the loss and
+    its gradient reaches the router), and the audio and vision families
+    with their stub embeddings as the step's extra arguments
+    (``extra_spec``), split into microbatches with the batch when
+    accumulating."""
+    jc = dataclasses.replace(jax_smoke(arch), **F32)
+    tc = dataclasses.replace(get_smoke_config(arch), **F32)
+    jp = JM.init_params(jax.random.PRNGKey(2), jc)
+    rng = np.random.default_rng(3)
+    tok = rng.integers(0, jc.vocab_size, (B, S + 1)).astype(np.int32)
+    inputs, targets = tok[:, :-1], tok[:, 1:]
+    spec = {}
+    if tc.encoder_layers:
+        spec["audio_embeds"] = None
+    elif tc.family == "vlm":
+        spec["vision_embeds"] = None
+    extra = [rng.standard_normal((B, tc.num_source_positions, tc.d_model))
+             .astype(np.float32) for _ in spec]
+    jopt, topt = _opt()
+    jtc = JT.TrainConfig(accum=accum)
+    tparams = params_from_jax(jp, tc)
+    tbatch = (torch.from_numpy(inputs.copy()),
+              torch.from_numpy(targets.copy()))
+    textra = [torch.from_numpy(e) for e in extra]
+    # the full batch's gradients, against repro's
+    (jloss, jparts), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: JT.loss_fn(p, jc, inputs, targets, z_loss=1e-4,
+                             aux_weight=1e-2,
+                             extra=dict(zip(spec, extra))),
+        has_aux=True))(jp)
+    (tloss, tparts), tgrads = TT.make_grad_fn(tc, TT.TrainConfig(
+        device="cpu"))(tparams, *tbatch, dict(zip(spec, textra)))
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-6)
+    for k, v in jparts.items():
+        np.testing.assert_allclose(float(tparts[k]), float(v), rtol=1e-6,
+                                   atol=1e-9, err_msg=k)
+    rel = GRAD_REL if tc.moe is None else MOE_GRAD_REL
+    grads = params_from_jax(jgrads, tc)
+    assert set(tgrads) == set(grads)
+    for name, want in grads.items():
+        err = np.abs(_np(tgrads[name]) - _np(want)).max() / np.abs(
+            _np(want)).max()
+        assert err <= rel, (name, err)
+    if tc.moe is not None:      # the aux loss is live and reaches the router
+        assert float(jparts["aux"]) > 0
+        assert float(tgrads["layers.0.ffn.router"].abs().max()) > 0
+    # one step, accumulated over `accum` microbatches
+    jnew, _, jm = jax.jit(JT.make_train_step(jc, jopt, jtc, spec or None))(
+        jp, JO.adamw_init(jp), inputs, targets, *extra)
+    tnew, to, tm = TT.make_train_step(
+        tc, topt, TT.TrainConfig(accum=accum, device="cpu"), spec or None)(
+        tparams, TO.adamw_init(tparams), *tbatch, *textra)
+    for k in ("loss", "ce", "z", "aux", "lr"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-6,
+                                   atol=1e-9, err_msg=k)
+    # a MoE's norm moves with its gradients' bfloat16 steps ([1.2e-5])
+    np.testing.assert_allclose(float(tm["grad_norm"]),
+                               float(jm["grad_norm"]),
+                               rtol=1e-5 if tc.moe is None else rel)
+    for name, want in params_from_jax(jnew, tc).items():
+        got = tnew[name]
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        diff = np.abs(_np(got) - _np(want))
+        g = np.abs(_np(grads[name]))
+        sharp = g >= max(WELL_CONDITIONED,
+                         0 if tc.moe is None else 2 * rel * g.max())
+        assert diff[sharp].max(initial=0) <= UPDATE_ABS, name
+        assert diff.max() <= 2 * LR, name
 
 
 def test_reference_cannot_take_a_float32_step(monkeypatch):
