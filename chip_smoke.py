@@ -191,12 +191,16 @@ before the result line):
    under ``torch.no_grad()``; every prefill cold and warm, with wall
    seconds, tokens/s, peak memory, flash launches by kernel and argmax
    tokens, then profiled:
-   a. flash against its plain version (``FLASH_TOL``) at the new shapes:
-      hd 96 (B=1, H=K=32, S=4096, causal) in bf16 and float32, both on
-      the simt kernel; whisper's cross attention (B=4, H=K=16, Sq=448,
-      Skv=1500, hd 64, bf16, non-causal), its encoder's 1500 x 1500
-      non-causal self attention, and a ragged Skv=1499 in float32; times,
-      bound and SDPA's time as in 6a;
+   a. flash against its plain version (``FLASH_TOL``) at every shape
+      b-f call it with (``family_flash_cases``, from their configs):
+      granite's 4 x 4096 at hd 64 and llama4's 2 x 4096 at hd 128 (GQA
+      24/8 and 40/8); whisper's encoder (4 x 1500, non-causal), decoder
+      (4 x 448, causal) and cross attention (448 over 1500 frames,
+      non-causal), hd 64; phi3-vision's 4 x 4096 at hd 96 on the simt
+      kernel; phi4-mini's 4 x 4096 in bf16 and its float32 1024- and
+      1088-token prefills (simt, GQA 24/8, hd 128); then hd 96 in
+      float32 and a ragged Skv=1499 in float32; times, bound and SDPA's
+      time as in 6a;
    b. granite-moe-3b (``configs/granite_moe_3b.py``: 32 layers, d_model
       1536, 40 experts top-8 of d_ff 512, group 512, capacity 128): a 4 x
       4096 prefill (32 flash launches, all wgmma; aux finite; the share
@@ -2360,22 +2364,6 @@ def phase_concurrent(torch, sf: float, seed: int, card: str
 # phase 10: the model families that reached the port last, and phi4-mini
 # ---------------------------------------------------------------------------
 
-# 10a: flash at the new families' shapes: phi3-vision's hd 96 (the simt
-# kernel in both dtypes), whisper's cross attention (448 decoder positions
-# over 1500 encoder frames) and its encoder's self attention, both
-# non-causal, and a ragged key length in float32
-FAMILY_FLASH_CASES = [
-    dict(B=1, H=32, K=32, S=4096, hd=96, causal=True, window=None,
-         dtype="bfloat16"),
-    dict(B=1, H=32, K=32, S=4096, hd=96, causal=True, window=None,
-         dtype="float32"),
-    dict(B=4, H=16, K=16, S=448, Skv=1500, hd=64, causal=False, window=None,
-         dtype="bfloat16"),
-    dict(B=4, H=16, K=16, S=1500, hd=64, causal=False, window=None,
-         dtype="bfloat16"),
-    dict(B=4, H=16, K=16, S=448, Skv=1499, hd=64, causal=False, window=None,
-         dtype="float32"),
-]
 FAMILY_BATCH, FAMILY_LEN = 4, 4096
 LLAMA4_LAYERS, LLAMA4_BATCH = 8, 2   # 48 layers hold ~212 GB of bf16
 WHISPER_LEN = 448                    # whisper's decoder positions
@@ -2390,13 +2378,45 @@ PHI4_PROMPT, PHI4_DECODE = 1024, 64
 MOE_LAYER_REL = 2e-2
 
 
+def family_flash_cases() -> list:
+    """10a's cases: every shape at which 10b-10f call flash, read from
+    the configs and the batch and lengths those phases use, then two
+    that no path runs: hd 96 in float32, and a ragged key length in
+    float32."""
+    from repro_torch.configs import get_config
+
+    def attn(arch, B, S, dtype="bfloat16", causal=True, Skv=None):
+        c = get_config(arch)
+        case = dict(B=B, H=c.num_heads, K=c.num_kv_heads, S=S,
+                    hd=c.head_dim, causal=causal, window=None, dtype=dtype)
+        return case if Skv is None else {**case, "Skv": Skv}
+
+    frames = get_config("whisper_medium").num_source_positions
+    phi3 = attn("phi3_vision_4b", FAMILY_BATCH, FAMILY_LEN)
+    cross = attn("whisper_medium", FAMILY_BATCH, WHISPER_LEN, causal=False,
+                 Skv=frames)
+    return [
+        attn("granite_moe_3b", FAMILY_BATCH, FAMILY_LEN),         # 10b
+        attn("llama4_scout_17b", LLAMA4_BATCH, FAMILY_LEN),       # 10c
+        attn("whisper_medium", FAMILY_BATCH, frames, causal=False),  # 10d
+        attn("whisper_medium", FAMILY_BATCH, WHISPER_LEN),
+        cross,
+        phi3,                                                     # 10e
+        attn("phi4_mini_3b", FAMILY_BATCH, FAMILY_LEN),           # 10f
+        attn("phi4_mini_3b", 1, PHI4_PROMPT, "float32"),
+        attn("phi4_mini_3b", 1, PHI4_PROMPT + PHI4_DECODE, "float32"),
+        {**phi3, "dtype": "float32"},
+        {**cross, "Skv": frames - 1, "dtype": "float32"},
+    ]
+
+
 def phase_family_kernels(torch, ptxas: dict) -> list:
     """10a: flash at the new families' shapes against its plain
     version."""
     g = torch.Generator(device=DEVICE)
     g.manual_seed(10)
     rows = []
-    for case in FAMILY_FLASH_CASES:
+    for case in family_flash_cases():
         rows.append({**flash_case(torch, case, g), **ptxas_of(
             ptxas, "flash_attention", flash_tag(case))})
         log("kernel " + json.dumps(rows[-1]))
@@ -2978,7 +2998,7 @@ def main() -> int:
             extra["phase10_wgmma"] = sum(
                 families[m][k]["launches"]["flash_wgmma"]
                 for m, k in FAMILY_PATHS.values())
-            hd96 = family_rows[0]
+            hd96 = next(r for r in family_rows if r["hd"] == 96)
             extra["hd96"] = {k: hd96[k] for k in (
                 "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by", "max_abs_err", "kernel")}

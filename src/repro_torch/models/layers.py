@@ -245,13 +245,15 @@ def attention_decode(p: Params, x: torch.Tensor, cache: dict,
     tensors and ``len + 1``. Scores and the weighted sum run in float32
     over bfloat16 K/V (a narrower cache dtype is upcast to bfloat16
     first), with the probabilities rounded to bfloat16, as in ``repro``.
+    ``kind`` is ``"attn"`` or ``"local"``: cross attention decodes
+    through ``model._cross_decode``.
     """
     B = x.shape[0]
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     pos = int(cache["len"])
     positions = torch.full((B, 1), pos, device=x.device)
     q, k_new, v_new = _project_qkv(p, x, x, cfg, positions, positions,
-                                   use_rope=kind != "cross")
+                                   use_rope=True)
     ck, cv = cache["k"], cache["v"]
     smax = ck.shape[2]
     ins = pos % smax

@@ -112,23 +112,31 @@ def test_wgmma_kernel_at_long_sequences(cuda, hd, causal, window, B, H, K,
                                atol=atol)
 
 
-# the shapes of the model families that reached the card last:
-# phi3-vision's prefill (hd 96, simt in both dtypes), whisper's cross
-# attention (448 decoder positions over 1500 frames) and its encoder's
-# bidirectional self attention, and a ragged Skv in float32
-NEW_SHAPES = [   # (B, H, K, Sq, Skv, hd, causal, dtype)
-    (1, 32, 32, 4096, 4096, 96, True, torch.bfloat16),
-    (1, 32, 32, 4096, 4096, 96, True, torch.float32),
-    (4, 16, 16, 448, 1500, 64, False, torch.bfloat16),
-    (4, 16, 16, 1500, 1500, 64, False, torch.bfloat16),
-    (4, 16, 16, 448, 1499, 64, False, torch.float32),
-]
+# every shape at which the model families that reached the card last
+# call flash in chip_smoke.py's phase 10 (its family_flash_cases):
+# granite's and llama4's prefills (GQA 24/8 at hd 64, 40/8 at hd 128),
+# whisper's encoder, decoder and cross attention (448 positions over 1500
+# frames), phi3-vision's hd 96 (simt), phi4-mini's bf16 prefill and its
+# float32 1024- and 1088-token prefills (simt); then hd 96 in float32
+# and a ragged Skv in float32
+NEW_SHAPES = {   # id: (B, H, K, Sq, Skv, hd, causal, dtype)
+    "granite": (4, 24, 8, 4096, 4096, 64, True, torch.bfloat16),
+    "llama4": (2, 40, 8, 4096, 4096, 128, True, torch.bfloat16),
+    "encoder": (4, 16, 16, 1500, 1500, 64, False, torch.bfloat16),
+    "whisper-self": (4, 16, 16, 448, 448, 64, True, torch.bfloat16),
+    "cross": (4, 16, 16, 448, 1500, 64, False, torch.bfloat16),
+    "hd96-bf16": (4, 32, 32, 4096, 4096, 96, True, torch.bfloat16),
+    "phi4": (4, 24, 8, 4096, 4096, 128, True, torch.bfloat16),
+    "phi4-f32-1024": (1, 24, 8, 1024, 1024, 128, True, torch.float32),
+    "phi4-f32-1088": (1, 24, 8, 1088, 1088, 128, True, torch.float32),
+    "hd96-f32": (4, 32, 32, 4096, 4096, 96, True, torch.float32),
+    "cross-ragged-f32": (4, 16, 16, 448, 1499, 64, False, torch.float32),
+}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,K,sq,skv,hd,causal,dtype", NEW_SHAPES,
-                         ids=["hd96-bf16", "hd96-f32", "cross", "encoder",
-                              "cross-ragged-f32"])
+@pytest.mark.parametrize("B,H,K,sq,skv,hd,causal,dtype",
+                         list(NEW_SHAPES.values()), ids=list(NEW_SHAPES))
 def test_cuda_kernel_at_the_new_families_shapes(cuda, B, H, K, sq, skv, hd,
                                                 causal, dtype):
     q, k, v = _qkv(B, H, K, sq, skv, hd, dtype, cuda, seed=sq + skv + hd)

@@ -35,8 +35,9 @@ cases in brackets):
   the backward rounds their cotangents to bfloat16 at every MoE layer;
   where the two packages' float32 cotangents straddle a rounding
   boundary, an element moves by a bfloat16 step (2^-8 of itself), and
-  carries that to every leaf below; the gradient norm moves with them
-  (held at the same 2^-8; [1.2e-5]). A MoE's updated parameters are
+  carries that to every leaf below. The gradient norm sums those steps
+  over every element, so they mostly cancel: it is held at rtol 1e-4
+  ([1.2e-5 granite, 8.5e-6 llama4]). A MoE's updated parameters are
   held to ``UPDATE_ABS`` where the gradient is also at least twice that
   tolerance times the leaf's max (elsewhere its sign may differ).
 - each updated parameter: 1e-5 absolute where the leaf's gradient is
@@ -68,7 +69,7 @@ ARCHS = ["xlstm_350m", "recurrentgemma_9b", "phi4_mini_3b"]
 B, S = 4, 32
 LR = 1e-3
 GRAD_REL, UPDATE_ABS, WELL_CONDITIONED = 5e-4, 1e-5, 1e-6
-MOE_GRAD_REL = 2.0 ** -8
+MOE_GRAD_REL, MOE_NORM_RTOL = 2.0 ** -8, 1e-4
 VARIANTS = [(1, None), (2, None), (4, None), (1, "full"), (1, "dots")]
 
 
@@ -257,10 +258,10 @@ def test_one_step_of_the_new_families_matches_repro(arch, accum):
     for k in ("loss", "ce", "z", "aux", "lr"):
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-6,
                                    atol=1e-9, err_msg=k)
-    # a MoE's norm moves with its gradients' bfloat16 steps ([1.2e-5])
+    # a MoE's norm moves with its gradients' bfloat16 steps
     np.testing.assert_allclose(float(tm["grad_norm"]),
                                float(jm["grad_norm"]),
-                               rtol=1e-5 if tc.moe is None else rel)
+                               rtol=1e-5 if tc.moe is None else MOE_NORM_RTOL)
     for name, want in params_from_jax(jnew, tc).items():
         got = tnew[name]
         assert got.dtype == want.dtype and got.shape == want.shape, name
