@@ -88,7 +88,7 @@ before the result line):
    a. the flash attention and RG-LRU scan kernels against their plain
       versions at the prefill's shapes (B=4, S=4096) and edge cases,
       with times, bounds and the library yardstick; each flash case
-      names the kernel it ran (``wgmma`` for bf16 at hd 64/128/256,
+      names the kernel it ran (``wgmma`` for bf16 at hd 64/96/128/256,
       ``simt`` otherwise), the main case must run ``wgmma`` with no
       spill, and its control, the plain version with P rounded to one
       bf16 part before P V, must fail ``FLASH_TOL``;
@@ -196,11 +196,12 @@ before the result line):
       granite's 4 x 4096 at hd 64 and llama4's 2 x 4096 at hd 128 (GQA
       24/8 and 40/8); whisper's encoder (4 x 1500, non-causal), decoder
       (4 x 448, causal) and cross attention (448 over 1500 frames,
-      non-causal), hd 64; phi3-vision's 4 x 4096 at hd 96 on the simt
-      kernel; phi4-mini's 4 x 4096 in bf16 and its float32 1024- and
-      1088-token prefills (simt, GQA 24/8, hd 128); then hd 96 in
-      float32 and a ragged Skv=1499 in float32; times, bound and SDPA's
-      time as in 6a;
+      non-causal), hd 64; phi3-vision's 4 x 4096 at hd 96 on the wgmma
+      kernel (TMA boxes of 32 columns; no spill, and the one-bf16-P
+      control must fail ``FLASH_TOL`` there too); phi4-mini's 4 x 4096
+      in bf16 and its float32 1024- and 1088-token prefills (simt, GQA
+      24/8, hd 128); then hd 96 in float32 (simt) and a ragged
+      Skv=1499 in float32; times, bound and SDPA's time as in 6a;
    b. granite-moe-3b (``configs/granite_moe_3b.py``: 32 layers, d_model
       1536, 40 experts top-8 of d_ff 512, group 512, capacity 128): a 4 x
       4096 prefill (32 flash launches, all wgmma; aux finite; the share
@@ -220,7 +221,7 @@ before the result line):
       decode steps against ``init_cache(enc_out=...)``, finite;
    e. phi3-vision-4b (``configs/phi3_vision_4b.py``: 32 layers, d_model
       3072, hd 96): a 4 x 4096 prefill with 576 patch embeddings fused
-      over the first positions, 32 flash launches on the simt kernel;
+      over the first positions, 32 flash launches, all wgmma;
    f. phi4-mini-3b (``configs/phi4_mini_3b.py``: 32 layers, d_model
       3072, GQA 24/8 at hd 128, no window): a 4 x 4096 prefill, 32
       wgmma launches; then, in float32 activations over the same
@@ -1369,9 +1370,11 @@ def flash_one_bf16_p(torch, q, k, v, *, causal: bool, window):
     return out
 
 
-def flash_case(torch, case: dict, g):
+def flash_case(torch, case: dict, g, *, control: bool = False):
     """One flash attention case: the kernel against its plain version,
-    and times of the wrapper, the kernel, the plain version and SDPA."""
+    and times of the wrapper, the kernel, the plain version and SDPA;
+    with ``control``, the plain version with one bf16 P must fail
+    ``FLASH_TOL`` on the same inputs."""
     from repro_torch.kernels.flash_attention import kernel, ops, ref
     import torch.nn.functional as F
     B, H, K, S, hd = (case[k] for k in ("B", "H", "K", "S", "hd"))
@@ -1411,24 +1414,24 @@ def flash_case(torch, case: dict, g):
     nbytes = (2 * B * H * S + 2 * B * K * skv) * hd * q.element_size()
     t_ops = flops / PEAK_FLOPS[dt] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    control = None
-    if case == FLASH_MAIN:
+    one_p = None
+    if control:
         # P rounded to one bf16 part before P V, as a kernel that fed it
         # to the tensor cores so would read it: it must fail the gate
         # that the kernel's split form (P = hi + lo) passes
         one = flash_one_bf16_p(torch, q, k, v, causal=causal, window=window)
-        control = {"max_abs_err": float((one.float() - want.float())
-                                        .abs().max()),
-                   "passes": bool(torch.allclose(one.float(), want.float(),
-                                                 rtol=rtol, atol=atol))}
-        log(f"flash control, one bf16 P: {json.dumps(control)}")
-        expect(not control["passes"], "the one-bf16-P control passes "
-               "FLASH_TOL: the gate cannot tell the two forms apart")
+        one_p = {"max_abs_err": float((one.float() - want.float())
+                                      .abs().max()),
+                 "passes": bool(torch.allclose(one.float(), want.float(),
+                                               rtol=rtol, atol=atol))}
+        log(f"flash control, one bf16 P: {json.dumps(one_p)}")
+        expect(not one_p["passes"], "the one-bf16-P control passes "
+               "FLASH_TOL: the gate cannot tell the two forms apart", case)
         del one
     del got, want
     return {
         "op": "flash_attention", **case, "kernel": name,
-        "control_one_bf16_p": control, "max_abs_err": err,
+        "control_one_bf16_p": one_p, "max_abs_err": err,
         "library_err": float((lib.float() - plain().float()).abs().max()),
         "ms": cuda_ms(torch, call, reps=5),
         "kernel_only_ms": cuda_ms(torch, alone, reps=5),
@@ -1508,8 +1511,9 @@ def phase_model_kernels(torch, ptxas: dict):
     g.manual_seed(2)
     rows = []
     for case in FLASH_CASES:
-        rows.append({**flash_case(torch, case, g), **ptxas_of(
-            ptxas, "flash_attention", flash_tag(case))})
+        rows.append({**flash_case(torch, case, g,
+                                  control=case == FLASH_MAIN),
+                     **ptxas_of(ptxas, "flash_attention", flash_tag(case))})
         log("kernel " + json.dumps(rows[-1]))
     main = rows[0]
     expect(main["kernel"] == "wgmma" and main["spill_bytes"] == 0,
@@ -1622,7 +1626,7 @@ def phase_prefill(torch, cfg, model, seed: int, want: dict,
                "aux": float(aux)}
         if keep and run == "warm":
             out["last"] = (tokens, logits, kvs)
-        del logits, kvs
+        del logits, kvs, live     # the warm run holds no K/V of the cold one
     out["profile"] = profile_device(
         torch, label, lambda: model(tokens, mode="last_logits", **extra))
     return out
@@ -2412,17 +2416,21 @@ def family_flash_cases() -> list:
 
 def phase_family_kernels(torch, ptxas: dict) -> list:
     """10a: flash at the new families' shapes against its plain
-    version."""
+    version; at phi3-vision's hd 96 in bf16 (wgmma, 32-column boxes) the
+    one-bf16-P control too, and no spill."""
     g = torch.Generator(device=DEVICE)
     g.manual_seed(10)
     rows = []
     for case in family_flash_cases():
-        rows.append({**flash_case(torch, case, g), **ptxas_of(
+        hd96 = case["hd"] == 96 and case["dtype"] == "bfloat16"
+        rows.append({**flash_case(torch, case, g, control=hd96), **ptxas_of(
             ptxas, "flash_attention", flash_tag(case))})
         log("kernel " + json.dumps(rows[-1]))
-        expect(rows[-1]["kernel"] == ("simt" if case["hd"] == 96
-                                      or case["dtype"] == "float32"
+        expect(rows[-1]["kernel"] == ("simt" if case["dtype"] == "float32"
                                       else "wgmma"), "flash kernel", case)
+        if hd96:
+            expect(rows[-1]["spill_bytes"] == 0, "flash_wgmma_kernel<96> "
+                   "spills", rows[-1]["registers"], rows[-1]["spill_bytes"])
     return rows
 
 
@@ -2632,7 +2640,7 @@ def phase_whisper(torch, seed: int) -> dict:
 
 def phase_phi3_vision(torch, seed: int) -> dict:
     """10e: phi3-vision-4b, all 32 layers: 576 patch embeddings fused over
-    the first positions, flash at hd 96 on the simt kernel."""
+    the first positions, flash at hd 96 on the wgmma kernel."""
     cfg, model = full_model(torch, seed, "phi3_vision_4b")
     g = torch.Generator(device=DEVICE)
     g.manual_seed(seed + 5)
@@ -2640,7 +2648,7 @@ def phase_phi3_vision(torch, seed: int) -> dict:
                          cfg.d_model, generator=g, device=DEVICE,
                          dtype=torch.bfloat16)
     pre = family_prefill(torch, cfg, model, seed,
-                         only_flash(cfg.num_layers, 0),
+                         only_flash(cfg.num_layers, cfg.num_layers),
                          "phi3-vision prefill", batch=FAMILY_BATCH,
                          length=FAMILY_LEN, extra={"vision_embeds": vision})
     del model
@@ -2998,10 +3006,18 @@ def main() -> int:
             extra["phase10_wgmma"] = sum(
                 families[m][k]["launches"]["flash_wgmma"]
                 for m, k in FAMILY_PATHS.values())
-            hd96 = next(r for r in family_rows if r["hd"] == 96)
+            # phi3-vision's bf16 hd 96 (wgmma), beside float32 hd 96 at
+            # the same shape, which stays on simt
+            hd96, simt96 = (next(r for r in family_rows if r["hd"] == 96
+                                 and r["dtype"] == dt)
+                            for dt in ("bfloat16", "float32"))
             extra["hd96"] = {k: hd96[k] for k in (
-                "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
-                "bound_by", "max_abs_err", "kernel")}
+                "ms", "kernel_only_ms", "device_ms", "plain_ms",
+                "library_ms", "bound_ms", "bound_by", "max_abs_err",
+                "kernel", "registers", "spill_bytes",
+                "control_one_bf16_p")}
+            extra["hd96"]["float32"] = {k: simt96[k] for k in (
+                "ms", "device_ms", "library_ms", "bound_ms", "kernel")}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],

@@ -3,9 +3,9 @@
 //
 // Replaces the Pallas TPU kernel of repro/kernels/flash_attention/kernel.py:
 //   flash_attention_kernel (body _fa_body) -> repro_flash_attention_wgmma
-//     (bf16 at hd 64, 128, 256: wgmma and TMA, below) and
-//     repro_flash_attention (float32 at every hd, bf16 at hd 16, 32 and
-//     96: the float32 FMA units, described first). kernel.py picks one
+//     (bf16 at hd 64, 96, 128, 256: wgmma and TMA, below) and
+//     repro_flash_attention (float32 at every hd, bf16 at hd 16 and 32:
+//     the float32 FMA units, described first). kernel.py picks one
 //     through an explicit table.
 //
 // What it computes: for q (B, H, Sq, hd) and k, v (B, K, Skv, hd) with
@@ -34,9 +34,9 @@
 // bf16 tensor-core peak, against ~0.2 GB of q, k, v and out. This first
 // version does its products on the float32 FMA units from shared memory
 // (no tensor cores, no TMA, one CTA per SM at hd=256 for its 211 KB of
-// shared memory), so it sits far above that bound: it serves float32 and
-// the head dims where the wgmma kernel below does not apply (16, 32, and
-// 96: phi3-vision's, CPT = 6 columns a thread, rows of 100 floats).
+// shared memory), so it sits far above that bound: it serves float32, which
+// the bf16 tensor cores do not take, and bf16 at hd 16 and 32, the head
+// dims of the smoke configs only.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -249,9 +249,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
   return cudaGetLastError();
 }
 
-// float32 at every head dim; bf16 at 16, 32 and 96 only (the wgmma kernel
-// takes bf16 at 64, 128 and 256; its TMA boxes are 64 columns wide, and 96
-// is not a multiple of them)
+// float32 at every head dim; bf16 at 16 and 32 only (the wgmma kernel
+// takes bf16 at 64, 96, 128 and 256)
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int B, int H, int K,
                      int sq, int skv, int hd, int causal, int window, float scale,
@@ -260,12 +259,12 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int
   switch (hd) {
     case 16: return launch<T, 16>(q, k, v, out, B, H, K, sq, skv, causal, window, scale, stream);
     case 32: return launch<T, 32>(q, k, v, out, B, H, K, sq, skv, causal, window, scale, stream);
-    case 96: return launch<T, 96>(q, k, v, out, B, H, K, sq, skv, causal, window, scale, stream);
     default: break;
   }
   if constexpr (f32) {
     switch (hd) {
       case 64: return launch<T, 64>(q, k, v, out, B, H, K, sq, skv, causal, window, scale, stream);
+      case 96: return launch<T, 96>(q, k, v, out, B, H, K, sq, skv, causal, window, scale, stream);
       case 128: return launch<T, 128>(q, k, v, out, B, H, K, sq, skv, causal, window, scale, stream);
       case 256: return launch<T, 256>(q, k, v, out, B, H, K, sq, skv, causal, window, scale, stream);
       default: break;
@@ -275,26 +274,26 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at hd 64, 128 and 256: the same function on the tensor cores,
+// bf16 at hd 64, 96, 128 and 256: the same function on the tensor cores,
 // fed by TMA (flash_wgmma_kernel, repro_flash_attention_wgmma).
 //
 // One CTA per (b, tile of 128 queries, h), h fastest, so the H CTAs of
 // one (b, query tile), which read the same kv head's K/V under GQA, run
 // together and share K/V through L2. 384 threads in three warpgroups:
 //   - warpgroup 0, the producer: one thread issues TMA loads
-//     (cp.async.bulk.tensor, 128-byte swizzle, tensor maps encoded on the
-//     host and passed as __grid_constant__) of the Q tile once, then of
-//     each live kv tile's K and V into a ring of two stages, each stage
-//     with its own "full" (K, V) and "empty" mbarriers;
+//     (cp.async.bulk.tensor, swizzled, tensor maps encoded on the host and
+//     passed as __grid_constant__) of the Q tile once, then of each live kv
+//     tile's K and V into a ring of stages, each stage with its own "full"
+//     (K, V) and "empty" mbarriers;
 //   - warpgroups 1 and 2, the consumers, each own 64 query rows. Per kv
 //     tile of 64 keys: S = Q K^T on wgmma m64n64k16 (A and B from shared
 //     memory, K-major) with float32 accumulators; the mask, only where
 //     the diagonal, the window's edge or Skv cuts the tile; the online
 //     softmax in float32 registers (the row's max and sum over the 4
-//     threads that hold it); O = O * alpha + P V on wgmma m64n{hd}k16
-//     with P from registers and V from shared memory (MN-major, the
-//     transpose flag). O stays in registers; at the end O / max(l,
-//     1e-30) is rounded to bf16 and stored.
+//     threads that hold it); O = O * alpha + P V on one wgmma m64n{hd}k16
+//     per 16 keys, P from registers and V from shared memory (MN-major, the
+//     transpose flag). O stays in registers; at the end O / max(l, 1e-30)
+//     is rounded to bf16 and stored.
 // setmaxnreg moves registers from the producer (24) to the consumers
 // (240): at hd 256 O alone is 128 float32 registers a thread.
 //
@@ -304,30 +303,52 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int
 // is exact to ~2^-16 of P before the float32 sum, where one bf16 P would
 // carry 2^-9 and fail the one-rounding gate (chip_smoke.py's control).
 //
-// Shared memory (hd 256): Q 128 x 256 (64 KB) + 2 stages x (K + V) 64 x
-// 256 (128 KB) = 192 KB, plus 1 KB for the swizzle's alignment. A tile
-// of 64 columns (128 bytes) per TMA box: Q is hd/64 boxes of 128 rows, K
-// and V hd/64 boxes of 64 rows.
+// Tiles in shared memory are TMA boxes of kBox columns, each box row one
+// span of the swizzle (WSmem). At hd 64, 128 and 256 a box is 64 columns,
+// 128 bytes, under the 128-byte swizzle. 96 is not a multiple of 64, so at
+// hd 96 a box is 32 columns, 64 bytes, under the 64-byte swizzle: three
+// boxes a tile, two k16 steps of Q K^T a box, and P V one m64n96k16 whose
+// B spans the three boxes as its three 32-column swizzle atoms (the
+// descriptor's leading byte offset is the stride between boxes). hd is
+// never padded: the tensor cores do the products of hd columns only.
+//
+// Shared memory: Q 128 x hd + stages x (K + V) 64 x hd, bf16, plus 1 KB for
+// the swizzle's alignment: hd 256 193 KB over two stages, hd 96 73 KB over
+// two (REPRO_FLASH_HD96_STAGES; examples/flash_stages.py times two against
+// three, which was no faster at phi3-vision's prefill shape: PERF.md).
 //
 // Bound on the H100: operations, 4 hd flops per live (query, key) pair
 // at the bf16 tensor-core peak (989 TFLOP/s); with the split P the
 // kernel does 6 hd (P V twice).
 // ---------------------------------------------------------------------------
 
+#ifndef REPRO_FLASH_HD96_STAGES
+#define REPRO_FLASH_HD96_STAGES 2
+#endif
+
 constexpr int kWBQ = 128;          // queries per CTA (2 consumer warpgroups x 64)
 constexpr int kWBK = 64;           // keys per kv tile
 constexpr int kWThreads = 384;     // producer + 2 consumer warpgroups
-constexpr int kBox = 64;           // columns per TMA box: 128 bytes of bf16
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD>
 struct WSmem {
+  // columns per TMA box: a box row is one span of the swizzle, 128 bytes
+  // where 64 columns tile hd, else 64 bytes (hd 96)
+  static constexpr int kBox = HD % 64 == 0 ? 64 : 32;
+  static constexpr uint32_t kRowBytes = 2 * kBox;
+  // wgmma's layout type (1: the 128-byte swizzle, 2: the 64-byte) and its
+  // stride byte offset: 8 box rows, one repeat of the swizzle
+  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;
+  static constexpr uint32_t kGroup = 8 * kRowBytes;
+  static constexpr int kStages = HD == 96 ? REPRO_FLASH_HD96_STAGES : 2;
   static constexpr int kBoxes = HD / kBox;
   static constexpr int kQBox = kWBQ * kBox;           // elements per Q box
   static constexpr int kKVBox = kWBK * kBox;          // elements per K/V box
   static constexpr int kQ = kBoxes * kQBox;           // Q tile elements
   static constexpr int kKV = kBoxes * kKVBox;         // K (or V) tile elements
-  static constexpr size_t kBytes = 2 * (static_cast<size_t>(kQ) + 4 * kKV) + 1024;
+  static constexpr size_t kBytes = 2 * (static_cast<size_t>(kQ) + 2 * kStages * kKV) + 1024;
+  static_assert(HD % kBox == 0 && kStages >= 2, "a tile is whole boxes, over two stages or more");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -362,7 +383,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   }
 }
 
-// One TMA box (64 columns x rows) at (col, row, plane) into dst.
+// One TMA box (columns x rows) at (col, row, plane) into dst.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int col,
                                          int row, int plane) {
   asm volatile(
@@ -372,12 +393,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       : "memory");
 }
 
-// A wgmma shared-memory descriptor of the 128-byte swizzle: start address,
-// leading and stride byte offsets (in 16-byte units).
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// A wgmma shared-memory descriptor: start address, leading and stride
+// byte offsets (in 16-byte units), and the swizzle's layout type (bits
+// 62-63: 1 the 128-byte swizzle, 2 the 64-byte). For a swizzled K-major
+// operand the leading offset is unused (1) and the stride offset is the
+// step between 8-row groups; for an MN-major one the leading offset is
+// the step between swizzle atoms along MN (the boxes) and the stride
+// offset the step between 8-row groups along K.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                               uint64_t layout) {
   return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -413,6 +440,18 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
 }
 
+// D (64 x 96, float32) += A (64 x 16, registers) B (16 x 96, shared,
+// MN-major: the transpose flag set), bf16 operands; B is three 32-column
+// atoms of the 64-byte swizzle, the descriptor's leading offset apart.
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
 // D (64 x 128, float32) += A (64 x 16, registers) B (16 x 128, shared,
 // MN-major: the transpose flag set), bf16 operands.
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
@@ -438,6 +477,7 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&
 template <int HD>
 __device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t (&a)[4], uint64_t db) {
   if constexpr (HD == 64) wgmma_rs_n64(o, a, db);
+  else if constexpr (HD == 96) wgmma_rs_n96(o, a, db);
   else if constexpr (HD == 128) wgmma_rs_n128(o, a, db);
   else wgmma_rs_n256(o, a, db);
 }
@@ -453,12 +493,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
                    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out, int H,
                    int K, int sq, int skv, int causal, int window, float scale_log2) {
   using L = WSmem<HD>;
+  constexpr int NS = L::kStages;
   extern __shared__ uint8_t w_raw[];
-  __shared__ __align__(8) uint64_t q_full, k_full[2], v_full[2], kv_empty[2];
+  __shared__ __align__(8) uint64_t q_full, k_full[NS], v_full[NS], kv_empty[NS];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(
       (reinterpret_cast<uintptr_t>(w_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  __nv_bfloat16* Ks = Qs + L::kQ;      // [stage][box][64 rows][64]
-  __nv_bfloat16* Vs = Ks + 2 * L::kKV;
+  __nv_bfloat16* Ks = Qs + L::kQ;      // [stage][box][64 rows][kBox]
+  __nv_bfloat16* Vs = Ks + NS * L::kKV;
 
   const int h = blockIdx.x;
   const int b = blockIdx.z;
@@ -482,7 +523,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
   const int tid = threadIdx.x;
   if (tid == 0) {
     mbar_init(&q_full, 1);
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < NS; ++s) {
       mbar_init(&k_full[s], 1);
       mbar_init(&v_full[s], 1);
       mbar_init(&kv_empty[s], 2 * 128);
@@ -497,17 +538,17 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
     if (tid == 0) {
       mbar_expect_tx(&q_full, L::kQ * 2);
       for (int bx = 0; bx < L::kBoxes; ++bx)
-        tma_load(Qs + bx * L::kQBox, &tm_q, &q_full, bx * kBox, q0, bh);
+        tma_load(Qs + bx * L::kQBox, &tm_q, &q_full, bx * L::kBox, q0, bh);
       for (int i = 0; i < n_kt; ++i) {
-        const int st = i & 1;
-        mbar_wait(&kv_empty[st], ((i >> 1) & 1) ^ 1);
+        const int st = i % NS;
+        mbar_wait(&kv_empty[st], ((i / NS) & 1) ^ 1);
         const int k0 = (kt_begin + i) * kWBK;
         mbar_expect_tx(&k_full[st], L::kKV * 2);
         for (int bx = 0; bx < L::kBoxes; ++bx)
-          tma_load(Ks + st * L::kKV + bx * L::kKVBox, &tm_k, &k_full[st], bx * kBox, k0, kvp);
+          tma_load(Ks + st * L::kKV + bx * L::kKVBox, &tm_k, &k_full[st], bx * L::kBox, k0, kvp);
         mbar_expect_tx(&v_full[st], L::kKV * 2);
         for (int bx = 0; bx < L::kBoxes; ++bx)
-          tma_load(Vs + st * L::kKV + bx * L::kKVBox, &tm_v, &v_full[st], bx * kBox, k0, kvp);
+          tma_load(Vs + st * L::kKV + bx * L::kKVBox, &tm_v, &v_full[st], bx * L::kBox, k0, kvp);
       }
     }
   } else {
@@ -526,18 +567,18 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
     for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
-    const uint32_t q_base = smem_addr(Qs) + wg * 64 * 128;
+    const uint32_t q_base = smem_addr(Qs) + wg * 64 * L::kRowBytes;
     mbar_wait(&q_full, 0);
 
     for (int i = 0; i < n_kt; ++i) {
-      const int st = i & 1;
-      const int par = (i >> 1) & 1;
+      const int st = i % NS;
+      const int par = (i / NS) & 1;
       const int k0 = (kt_begin + i) * kWBK;
       const uint32_t k_base = smem_addr(Ks + st * L::kKV);
       const uint32_t v_base = smem_addr(Vs + st * L::kKV);
 
-      // S = Q K^T: hd/16 steps of k16; within a 64-column box a step
-      // moves the start by 32 bytes, a box by its size
+      // S = Q K^T: hd/16 steps of k16; within a box a step moves the
+      // start by 32 bytes (kBox / 16 steps a box), a box by its size
       float s[32];
 #pragma unroll
       for (int j = 0; j < 32; ++j) s[j] = 0.f;
@@ -545,9 +586,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
       wgmma_fence();
 #pragma unroll
       for (int d = 0; d < HD / 16; ++d) {
-        const uint32_t bx = d >> 2, kk = d & 3;
-        wgmma_ss_n64(s, wgmma_desc(q_base + bx * (L::kQBox * 2) + kk * 32, 16, 1024),
-                     wgmma_desc(k_base + bx * (L::kKVBox * 2) + kk * 32, 16, 1024), d > 0);
+        const uint32_t bx = d / (L::kBox / 16), kk = d % (L::kBox / 16);
+        wgmma_ss_n64(s,
+                     wgmma_desc(q_base + bx * (L::kQBox * 2) + kk * 32, 16, L::kGroup, L::kLayout),
+                     wgmma_desc(k_base + bx * (L::kKVBox * 2) + kk * 32, 16, L::kGroup, L::kLayout),
+                     d > 0);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -611,13 +654,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
 
       // O += P V: 4 steps of 16 keys; A = P from registers in the
       // accumulator's layout (keys 16 ks .. 16 ks + 15 are S's column
-      // groups 2 ks and 2 ks + 1), B = V rows 16 ks .. (2 KB a step),
-      // 64-column boxes 8 KB apart
+      // groups 2 ks and 2 ks + 1), B = V rows 16 ks .. (16 box rows a
+      // step), its boxes L::kKVBox * 2 bytes apart
       mbar_wait(&v_full[st], par);
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks) {
-        const uint64_t dv = wgmma_desc(v_base + ks * 2048, L::kKVBox * 2, 1024);
+        const uint64_t dv =
+            wgmma_desc(v_base + ks * 16 * L::kRowBytes, L::kKVBox * 2, L::kGroup, L::kLayout);
         const uint32_t ah[4] = {ph[4 * ks], ph[4 * ks + 1], ph[4 * ks + 2], ph[4 * ks + 3]};
         const uint32_t al[4] = {pl[4 * ks], pl[4 * ks + 1], pl[4 * ks + 2], pl[4 * ks + 3]};
         wgmma_pv<HD>(o, ah, dv);
@@ -670,18 +714,25 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (planes, rows, hd) bf16 tensor as a 3-D map of boxes (64 columns, box_rows, 1).
-bool make_map(CUtensorMap* map, const void* base, int planes, int rows, int hd, int box_rows) {
+// A (planes, rows, HD) bf16 tensor as a 3-D map of boxes (WSmem<HD>::kBox
+// columns, box_rows, 1) under the swizzle of that box width.
+template <int HD>
+bool make_map(CUtensorMap* map, const void* base, int planes, int rows, int box_rows) {
+  using L = WSmem<HD>;
+  constexpr int hd = HD;
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(planes)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(hd) * 2,
                                  static_cast<cuuint64_t>(rows) * hd * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kBox), static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(L::kBox), static_cast<cuuint32_t>(box_rows),
+                             1};
   const cuuint32_t elem[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      L::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
-             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -692,8 +743,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
   constexpr size_t smem = WSmem<HD>::kBytes;
   static_assert(smem <= 232448 - 64, "shared memory over the H100's 227 KB per block");
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, B * H, sq, HD, kWBQ) || !make_map(&tk, k, B * K, skv, HD, kWBK) ||
-      !make_map(&tv, v, B * K, skv, HD, kWBK))
+  if (!make_map<HD>(&tq, q, B * H, sq, kWBQ) || !make_map<HD>(&tk, k, B * K, skv, kWBK) ||
+      !make_map<HD>(&tv, v, B * K, skv, kWBK))
     return cudaErrorInvalidValue;
   auto kern = flash_wgmma_kernel<HD>;
   cudaError_t err =
@@ -710,6 +761,7 @@ cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v, void* ou
                            cudaStream_t st) {
   switch (hd) {
     case 64: return launch_wgmma<64>(q, k, v, out, B, H, K, sq, skv, causal, window, scale, st);
+    case 96: return launch_wgmma<96>(q, k, v, out, B, H, K, sq, skv, causal, window, scale, st);
     case 128: return launch_wgmma<128>(q, k, v, out, B, H, K, sq, skv, causal, window, scale, st);
     case 256: return launch_wgmma<256>(q, k, v, out, B, H, K, sq, skv, causal, window, scale, st);
     default: return cudaErrorInvalidValue;
@@ -722,7 +774,8 @@ extern "C" {
 
 // q, out: (B, H, Sq, hd); k, v: (B, K, Skv, hd); contiguous, all of one
 // dtype: 0 = float32 (hd in {16, 32, 64, 96, 128, 256}), 1 = bfloat16 (hd
-// in {16, 32, 96}). K | H.
+// in {16, 32}; the other bf16 head dims take repro_flash_attention_wgmma).
+// K | H.
 // window <= 0: no window. Returns the CUDA error of the launch (0 =
 // success); Sq == 0 or B * H == 0 launches nothing.
 int repro_flash_attention(const void* q, const void* k, const void* v, void* out, int dtype, int B,
@@ -742,7 +795,7 @@ int repro_flash_attention(const void* q, const void* k, const void* v, void* out
   return static_cast<int>(err);
 }
 
-// The same for bfloat16 at hd in {64, 128, 256}, on wgmma and TMA.
+// The same for bfloat16 at hd in {64, 96, 128, 256}, on wgmma and TMA.
 int repro_flash_attention_wgmma(const void* q, const void* k, const void* v, void* out, int B,
                                 int H, int K, int sq, int skv, int hd, int causal, int window,
                                 float scale, void* stream) {

@@ -129,13 +129,28 @@ def test_plain_matches_at_hd_96_causal(dtype):
     np.testing.assert_allclose(got, want, rtol=TOL[dtype], atol=TOL[dtype])
 
 
-def test_hd_96_goes_to_the_simt_kernel_in_both_dtypes():
-    """The wgmma kernel's TMA boxes are 64 columns wide: hd 96 takes the
-    float32-FMA kernel, in bfloat16 too."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,K,S,window", [(1, 4, 2, 200, 48),
+                                            (1, 2, 2, 203, 100)],
+                         ids=["gqa2-window", "ragged-window"])
+def test_plain_matches_at_hd_96_with_a_window(B, H, K, S, window, dtype):
+    """hd 96 under a sliding window, over more than one 64-key tile, and
+    with S (so Skv) not a multiple of 64."""
+    arrays = _qkv(B, H, K, S, 96, seed=S + window)
+    got = _port(arrays, dtype, causal=True, window=window)
+    want = _jax(jflash, arrays, getattr(jnp, dtype), causal=True,
+                window=window, block_q=64, block_kv=64, interpret=True)
+    np.testing.assert_allclose(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_hd_96_goes_to_wgmma_in_bf16_and_simt_in_float32():
+    """The wgmma kernel takes bf16 at hd 96 (TMA boxes of 32 columns);
+    float32, which the bf16 tensor cores do not take, stays on the
+    float32-FMA kernel."""
     from repro_torch.kernels.flash_attention import kernel
     assert 96 in kernel.HEAD_DIMS
-    assert kernel.KERNELS[(torch.bfloat16, 96)] == "simt"
-    assert kernel.KERNELS[(torch.float32, 96)] == "simt"
+    assert kernel.kernel_for(torch.bfloat16, 96) == "wgmma"
+    assert kernel.kernel_for(torch.float32, 96) == "simt"
     assert kernel.kernel_for(torch.bfloat16, 64) == "wgmma"
 
 

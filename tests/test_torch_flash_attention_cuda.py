@@ -40,7 +40,7 @@ def _qkv(B, H, K, sq, skv, hd, dtype, device, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [16, 32, 64, 96, 128, 256])
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 48),
                                            (False, None)],
                          ids=["causal", "window48", "full"])
@@ -91,7 +91,7 @@ def test_cuda_kernel_window_wider_than_sequence_and_empty(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [64, 96, 128, 256])
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 2048),
                                            (True, 300), (False, None)],
                          ids=["causal", "window2048", "window300", "full"])
@@ -116,7 +116,7 @@ def test_wgmma_kernel_at_long_sequences(cuda, hd, causal, window, B, H, K,
 # call flash in chip_smoke.py's phase 10 (its family_flash_cases):
 # granite's and llama4's prefills (GQA 24/8 at hd 64, 40/8 at hd 128),
 # whisper's encoder, decoder and cross attention (448 positions over 1500
-# frames), phi3-vision's hd 96 (simt), phi4-mini's bf16 prefill and its
+# frames), phi3-vision's hd 96, phi4-mini's bf16 prefill and its
 # float32 1024- and 1088-token prefills (simt); then hd 96 in float32
 # and a ragged Skv in float32
 NEW_SHAPES = {   # id: (B, H, K, Sq, Skv, hd, causal, dtype)
@@ -141,8 +141,7 @@ def test_cuda_kernel_at_the_new_families_shapes(cuda, B, H, K, sq, skv, hd,
                                                 causal, dtype):
     q, k, v = _qkv(B, H, K, sq, skv, hd, dtype, cuda, seed=sq + skv + hd)
     name = kernel.kernel_for(dtype, hd)
-    assert name == ("wgmma" if dtype == torch.bfloat16 and hd != 96
-                    else "simt")
+    assert name == ("wgmma" if dtype == torch.bfloat16 else "simt")
     by_kernel = ops.flash_attention.launches_by_kernel[name]
     got = ops.flash_attention(q, k, v, causal=causal)
     want = ref.flash_attention_ref(q, k, v, causal=causal)
@@ -155,11 +154,42 @@ def test_cuda_kernel_at_the_new_families_shapes(cuda, B, H, K, sq, skv, hd,
 
 
 @pytest.mark.cuda
-def test_wgmma_kernel_is_bitwise_repeatable(cuda):
-    q, k, v = _qkv(2, 4, 1, 700, 700, 256, torch.bfloat16, cuda, seed=9)
+@pytest.mark.parametrize("hd", [256, 96])
+def test_wgmma_kernel_is_bitwise_repeatable(cuda, hd):
+    q, k, v = _qkv(2, 4, 1, 700, 700, hd, torch.bfloat16, cuda, seed=9)
     a = ops.flash_attention(q, k, v, causal=True, window=512)
     b = ops.flash_attention(q, k, v, causal=True, window=512)
     assert torch.equal(a, b)
+
+
+# hd 96 on the wgmma kernel: TMA boxes of 32 columns under the 64-byte
+# swizzle, three a tile, and P V as one m64n96k16 across them
+HD96 = {   # id: (B, H, K, Sq, Skv, causal, window)
+    "gqa-32/8": (2, 32, 8, 1024, 1024, True, None),
+    "window": (2, 8, 8, 1536, 1536, True, 300),
+    "cross-sq<skv": (2, 16, 16, 448, 1500, False, None),
+    "ragged-skv-1499": (1, 8, 2, 300, 1499, False, None),
+    "sq-1": (2, 8, 4, 1, 1499, False, None),
+    "sq-1-causal": (2, 8, 4, 1, 70, True, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,K,sq,skv,causal,window", list(HD96.values()),
+                         ids=list(HD96))
+def test_wgmma_kernel_at_hd_96(cuda, B, H, K, sq, skv, causal, window):
+    q, k, v = _qkv(B, H, K, sq, skv, 96, torch.bfloat16, cuda,
+                   seed=sq + skv)
+    assert kernel.kernel_for(torch.bfloat16, 96) == "wgmma"
+    by_kernel = ops.flash_attention.launches_by_kernel["wgmma"]
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches_by_kernel["wgmma"] == by_kernel + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    rtol, atol = TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
 
 
 def test_dispatch_table_raises_outside_both_kernels():
@@ -167,7 +197,8 @@ def test_dispatch_table_raises_outside_both_kernels():
     table and raises for any other; it needs no card."""
     assert kernel.kernel_for(torch.bfloat16, 256) == "wgmma"
     assert kernel.kernel_for(torch.bfloat16, 32) == "simt"
-    assert kernel.kernel_for(torch.bfloat16, 96) == "simt"
+    assert kernel.kernel_for(torch.bfloat16, 96) == "wgmma"
+    assert kernel.kernel_for(torch.float32, 96) == "simt"
     assert kernel.kernel_for(torch.float32, 256) == "simt"
     for dtype, hd in ((torch.bfloat16, 48), (torch.float32, 80),
                       (torch.bfloat16, 512)):
