@@ -283,8 +283,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int
 //   - warpgroup 0, the producer: one thread issues TMA loads
 //     (cp.async.bulk.tensor, swizzled, tensor maps encoded on the host and
 //     passed as __grid_constant__) of the Q tile once, then of each live kv
-//     tile's K and V into a ring of stages, each stage with its own "full"
-//     (K, V) and "empty" mbarriers;
+//     tile's K and V into a ring of two stages, each stage with its own
+//     "full" (K, V) and "empty" mbarriers;
 //   - warpgroups 1 and 2, the consumers, each own 64 query rows. Per kv
 //     tile of 64 keys: S = Q K^T on wgmma m64n64k16 (A and B from shared
 //     memory, K-major) with float32 accumulators; the mask, only where
@@ -312,19 +312,14 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int
 // descriptor's leading byte offset is the stride between boxes). hd is
 // never padded: the tensor cores do the products of hd columns only.
 //
-// Shared memory: Q 128 x hd + stages x (K + V) 64 x hd, bf16, plus 1 KB for
-// the swizzle's alignment: hd 256 193 KB over two stages, hd 96 73 KB over
-// two (REPRO_FLASH_HD96_STAGES; examples/flash_stages.py times two against
-// three, which was no faster at phi3-vision's prefill shape: PERF.md).
+// Shared memory: Q 128 x hd + 2 stages x (K + V) 64 x hd, bf16, plus 1 KB
+// for the swizzle's alignment: 193 KB at hd 256, 73 KB at hd 96 (where a
+// third stage was no faster at phi3-vision's prefill shape: PERF.md).
 //
 // Bound on the H100: operations, 4 hd flops per live (query, key) pair
 // at the bf16 tensor-core peak (989 TFLOP/s); with the split P the
 // kernel does 6 hd (P V twice).
 // ---------------------------------------------------------------------------
-
-#ifndef REPRO_FLASH_HD96_STAGES
-#define REPRO_FLASH_HD96_STAGES 2
-#endif
 
 constexpr int kWBQ = 128;          // queries per CTA (2 consumer warpgroups x 64)
 constexpr int kWBK = 64;           // keys per kv tile
@@ -341,14 +336,13 @@ struct WSmem {
   // stride byte offset: 8 box rows, one repeat of the swizzle
   static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;
   static constexpr uint32_t kGroup = 8 * kRowBytes;
-  static constexpr int kStages = HD == 96 ? REPRO_FLASH_HD96_STAGES : 2;
   static constexpr int kBoxes = HD / kBox;
   static constexpr int kQBox = kWBQ * kBox;           // elements per Q box
   static constexpr int kKVBox = kWBK * kBox;          // elements per K/V box
   static constexpr int kQ = kBoxes * kQBox;           // Q tile elements
   static constexpr int kKV = kBoxes * kKVBox;         // K (or V) tile elements
-  static constexpr size_t kBytes = 2 * (static_cast<size_t>(kQ) + 2 * kStages * kKV) + 1024;
-  static_assert(HD % kBox == 0 && kStages >= 2, "a tile is whole boxes, over two stages or more");
+  static constexpr size_t kBytes = 2 * (static_cast<size_t>(kQ) + 4 * kKV) + 1024;
+  static_assert(HD % kBox == 0, "a tile is whole boxes");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -493,13 +487,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
                    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out, int H,
                    int K, int sq, int skv, int causal, int window, float scale_log2) {
   using L = WSmem<HD>;
-  constexpr int NS = L::kStages;
   extern __shared__ uint8_t w_raw[];
-  __shared__ __align__(8) uint64_t q_full, k_full[NS], v_full[NS], kv_empty[NS];
+  __shared__ __align__(8) uint64_t q_full, k_full[2], v_full[2], kv_empty[2];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(
       (reinterpret_cast<uintptr_t>(w_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   __nv_bfloat16* Ks = Qs + L::kQ;      // [stage][box][64 rows][kBox]
-  __nv_bfloat16* Vs = Ks + NS * L::kKV;
+  __nv_bfloat16* Vs = Ks + 2 * L::kKV;
 
   const int h = blockIdx.x;
   const int b = blockIdx.z;
@@ -523,7 +516,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
   const int tid = threadIdx.x;
   if (tid == 0) {
     mbar_init(&q_full, 1);
-    for (int s = 0; s < NS; ++s) {
+    for (int s = 0; s < 2; ++s) {
       mbar_init(&k_full[s], 1);
       mbar_init(&v_full[s], 1);
       mbar_init(&kv_empty[s], 2 * 128);
@@ -540,8 +533,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
       for (int bx = 0; bx < L::kBoxes; ++bx)
         tma_load(Qs + bx * L::kQBox, &tm_q, &q_full, bx * L::kBox, q0, bh);
       for (int i = 0; i < n_kt; ++i) {
-        const int st = i % NS;
-        mbar_wait(&kv_empty[st], ((i / NS) & 1) ^ 1);
+        const int st = i & 1;
+        mbar_wait(&kv_empty[st], ((i >> 1) & 1) ^ 1);
         const int k0 = (kt_begin + i) * kWBK;
         mbar_expect_tx(&k_full[st], L::kKV * 2);
         for (int bx = 0; bx < L::kBoxes; ++bx)
@@ -571,8 +564,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
     mbar_wait(&q_full, 0);
 
     for (int i = 0; i < n_kt; ++i) {
-      const int st = i % NS;
-      const int par = (i / NS) & 1;
+      const int st = i & 1;
+      const int par = (i >> 1) & 1;
       const int k0 = (kt_begin + i) * kWBK;
       const uint32_t k_base = smem_addr(Ks + st * L::kKV);
       const uint32_t v_base = smem_addr(Vs + st * L::kKV);

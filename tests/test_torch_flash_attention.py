@@ -131,11 +131,12 @@ def test_plain_matches_at_hd_96_causal(dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,H,K,S,window", [(1, 4, 2, 200, 48),
-                                            (1, 2, 2, 203, 100)],
-                         ids=["gqa2-window", "ragged-window"])
+                                            (1, 2, 2, 203, 100),
+                                            (1, 4, 1, 130, 64)],
+                         ids=["gqa2-window", "ragged-window", "mqa-window"])
 def test_plain_matches_at_hd_96_with_a_window(B, H, K, S, window, dtype):
-    """hd 96 under a sliding window, over more than one 64-key tile, and
-    with S (so Skv) not a multiple of 64."""
+    """hd 96 under a sliding window, over more than one 64-key tile, with
+    S (so Skv) not a multiple of 64, and under MQA (K = 1)."""
     arrays = _qkv(B, H, K, S, 96, seed=S + window)
     got = _port(arrays, dtype, causal=True, window=window)
     want = _jax(jflash, arrays, getattr(jnp, dtype), causal=True,
