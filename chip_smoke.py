@@ -230,6 +230,44 @@ before the result line):
       of all 1088 tokens within ``PREFILL_DECODE_LOGITS_RTOL`` (the
       argmax too where the top-2 margin exceeds that error).
 
+11. distribution, two ranks on the one card (``RANKS`` processes
+   started by ``repro_torch.launch.mesh.run_ranks``: ``spawn``, a gloo
+   group through a file rendezvous, a time limit; a rank that raises or
+   hangs fails the phase); the kernels were built in 2 and are loaded:
+   a. the dry-run (``launch/specs.py``) of 10f's phi4-mini 4 x 4096
+      prefill on a one-card ``MeshShape``: its parameters' bytes, as the
+      caching allocator counts them, equal to what 10f allocated, and its
+      roofline bound (``roofline/``, counted on ``meta``) no larger than
+      10f's measured warm prefill (``roofline_fraction``); flash at the
+      per-rank shapes of b and c against its plain version
+      (``FLASH_TOL``); then which collectives gloo takes for CUDA tensors,
+      and what NCCL answers two ranks on one card;
+   b. phi4-mini's 2 x 4096 prefill under ``make_rules("prefill")`` on a
+      (data 1, model 2) mesh: each rank draws the weights from
+      ``--seed``, frees them on the card after a host copy, and reshards
+      that onto the mesh (``distributed/elastic.py``); its parameters'
+      bytes equal to the dry-run's per-rank bytes, the memory they grew
+      by equal to their allocator blocks, each block the dry-run's count
+      or, for a shard of 1 MiB or more, its segment's unsplit remainder
+      (1 MiB at most) more; 32 flash launches a rank; the last logits
+      against one rank's, both against float32 (``SPLIT_OF_OWN``);
+   c. phi4-mini in two GPipe stages of 16 layers (``distributed/
+      pipeline_parallel.py``), 4 x 4096 in ``PP_MICRO`` microbatches,
+      each rank holding its stage's parameters alone: the last hidden
+      state against one rank's, as b's (``SPLIT_OF_OWN``);
+   d. a data-parallel step of xlstm-350m (float32, 4 x 128, two rows a
+      rank) under ``make_rules("train", dp_only=True)``: the loss within
+      ``DP_LOSS_RTOL`` and each all-reduced gradient within 8d's kind of
+      bound of one rank's; 12 mLSTM launches a rank;
+   e. d's model, each rank's gradient reduced by ``compressed_psum_pod``
+      over a (pod 2) mesh for two steps: within ``COMPRESS_ATOL_OF_MAX``
+      of the plain mean, the error state after step 1 bit for bit;
+   f. two DP steps committed to a store on disk, restored here onto a
+      one-card mesh at the committed step 2 and trained to step 4: the
+      losses within ``DP_LOSS_RTOL`` of the same commit restored without
+      a mesh, and against an uninterrupted one-rank run within the larger
+      of that and twice the run's own spread under ``TRAIN_PERTURB``.
+
 The last two lines of standard output are one JSON object of the
 kernels' numbers, then ``{"ok": true, "device": {...}}``.
 """
@@ -250,7 +288,11 @@ N_ROWS = 6_001_215              # lineitem rows at TPC-H SF1
 Q18_GROUPS = 1_500_000          # orders at SF1: Q18's group count
 Q9_GROUPS = 175                 # TPC-H Q9's (nation, year) groups: the
                                 # integer SUM's shared-bin shape
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA's data sheet
+# the H100's memory rate and peak rates (bf16 on the tensor cores,
+# float32 on the FMA units: the flash kernel's float32 path), from
+# repro_torch/roofline/hw.py, their one source; main() reads them there
+HBM_BYTES_PER_S = None
+PEAK_FLOPS = None
 # Float SUM tolerance per segment, as a multiple of sum(|v|) over the
 # segment's valid lanes. Kernel and plain version both add in the value
 # dtype, in different orders (the plain version with atomics on the
@@ -285,9 +327,6 @@ SOURCES = {
         "src/repro_torch/kernels/mlstm/csrc/mlstm_chunkwise.cu",
 }
 Q18_JOIN_LANES = 1_500_000      # Q18's outer join probes one lane per order
-# peak rates of one H100 SXM (NVIDIA's data sheet, dense): bf16 on the
-# tensor cores, float32 on the FMA units (the flash kernel's float32 path)
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 ARCH = "recurrentgemma_9b"
 PREFILL_BATCH, PREFILL_LEN = 4, 4096
 LONG_PROMPT = 2304              # > local_window: the decode ring wraps
@@ -350,7 +389,9 @@ GRAD_RGLRU = dict(B=4, S=1024, W=4096)
 # 16, S = 512), TRAIN_STEPS steps with a checkpoint every TRAIN_CKPT
 # steps, and a second run killed at TRAIN_KILL_AT
 TRAIN_BATCH, TRAIN_LEN = 4, 512
-TRAIN_STEPS, TRAIN_CKPT, TRAIN_KILL_AT = 6, 2, 3
+# (4 steps, not 6, to make room for phase 11 in the time limit: run B
+# still resumes at the step-2 commit after the kill at 3)
+TRAIN_STEPS, TRAIN_CKPT, TRAIN_KILL_AT = 4, 2, 3
 TRAIN_PATH = f"xlstm_train_{TRAIN_BATCH}x{TRAIN_LEN}_{TRAIN_STEPS}_steps"
 TRAIN_RESUME_TOL = 1e-4     # |loss_A - loss_B|, repro's example's check
 # the device profile of one step is taken at TRAIN_PROFILE_LEN tokens a
@@ -2711,13 +2752,17 @@ def phi4_prefill_vs_decode(torch, cfg, model, seed: int) -> dict:
 def phase_phi4(torch, seed: int) -> dict:
     """10f: phi4-mini-3b, all 32 layers: a dense decoder at hd 128, full
     causal attention (no window), GQA 24/8."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
     cfg, model = full_model(torch, seed, "phi4_mini_3b")
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before   # 11a reads it
     pre = family_prefill(torch, cfg, model, seed,
                          only_flash(cfg.num_layers, cfg.num_layers),
                          "phi4 prefill", batch=FAMILY_BATCH,
                          length=FAMILY_LEN)
     pre.pop("last")
-    out = {"prefill": pre,
+    out = {"prefill": pre, "param_bytes_allocated": grown,
            "long": phi4_prefill_vs_decode(torch, cfg, model, seed)}
     del model
     torch.cuda.empty_cache()
@@ -2748,6 +2793,780 @@ def phase_families(torch, seed: int) -> dict:
         log(f"phase 10 {name}: {out[name]['wall_s']:.1f} s; "
             f"{json.dumps(out[name])}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: distribution, two ranks on the one card
+# ---------------------------------------------------------------------------
+
+RANKS = 2
+RANK_TIMEOUT_S = 300            # the phase-11 group, start to join
+PROBE_TIMEOUT_S = 60            # each probe group
+TP_BATCH = 2                    # 11b: 2 x 4096 on a (data 1, model 2) mesh
+PP_MICRO = 4                    # 11c: 4 x 4096 in 4 microbatches, 2 stages
+DP_BATCH, DP_LEN = 4, 128       # 11d-f: xlstm-350m, 2 rows a rank
+# 11b and 11c against one rank, bf16 activations. The split rounds
+# otherwise: tensor parallelism leaves each rank a bf16 partial sum of
+# every row-parallel product (the attention's and the MLP's output
+# projections, 64 in all), which the all-reduce adds and rounds again; a
+# microbatch of one row may take another cuBLAS algorithm than four rows.
+# Rounding of the same kind and size as the one rank's own bf16 rounding,
+# so both are held against the float32 forward of the same weights and
+# tokens, max|x - f32| / max|f32|: the split within SPLIT_OF_OWN times
+# the one rank's own distance (on the H100, NVIDIA H100 80GB HBM3 at
+# 700.00 W, 11b's split read 2.05e-2 from one rank directly, 2.14e-2
+# from float32 against the one rank's 1.76e-2). The argmax
+# too, where the top-2 margin exceeds the error, as 10f holds it.
+SPLIT_OF_OWN = 2.0
+# 11d: the DP step against one rank's step on the same weights and the
+# same four rows, float32 activations (8d's): the loss, a mean over 512
+# tokens, within 1e-5 of itself; each gradient, as max|dp - one| /
+# max|one|, within the larger of TRAIN_GRAD_RTOL and twice its own
+# spread under a TRAIN_PERTURB perturbation of the weights, as 8d derives
+# its bound: each rank's two rows run at another batch size than four,
+# so cuBLAS may take other algorithms (another summation order), and the
+# loss's bf16 barrier turns a float32 difference in the cotangent into a
+# bf16 step (2^-8) of an element, carried back through 24 layers.
+# 11f holds the resumed losses the same way: within DP_LOSS_RTOL of the
+# same commit restored without a mesh, and against the uninterrupted
+# one-rank run within the larger of DP_LOSS_RTOL and twice that run's
+# own spread under TRAIN_PERTURB. AdamW's first steps move each weight
+# by about lr whatever its gradient's size, so gradients as close as
+# 11d's (2.2e-3 relative, a bf16 step of the cotangent) still flip some
+# weights' updates: on the H100 the resumed losses read 7.1e-4 and
+# 4.1e-4 from the uninterrupted run's (NVIDIA H100 80GB HBM3, 700.00 W).
+DP_LOSS_RTOL = 1e-5
+# 11e: the reference's gate (tests/test_multidevice.py): each reduced
+# leaf within max|mean|/100 of the plain mean of what the ranks send
+# (each rank's gradient plus the residual it carries: error feedback
+# adds step 1's rounding to step 2 on purpose)
+COMPRESS_ATOL_OF_MAX = 1e-2
+
+
+def to_host_gathered(torch, t):
+    """A DTensor's global value on the host: each local shard copied to
+    the host and gathered over gloo there, then the shards concatenated
+    (the explicit host copy of a CUDA tensor); a plain tensor's host
+    copy. Returns (tensor, host bytes sent)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(t, DTensor):
+        return t.detach().cpu(), 0
+    out, sent = t.to_local().detach().cpu(), 0
+    for md in reversed(range(t.device_mesh.ndim)):
+        p = t.placements[md]
+        if not isinstance(p, Shard):
+            continue
+        n = t.device_mesh.size(md)
+        parts = [torch.empty_like(out) for _ in range(n)]
+        dist.all_gather(parts, out, group=t.device_mesh.get_group(md))
+        sent += out.numel() * out.element_size()
+        out = torch.cat(parts, dim=p.dim)
+    return out, sent
+
+
+def dryrun_param_bytes(torch, arch: str, batch: int, length: int,
+                       sizes: tuple) -> dict:
+    """The dry-run of ``arch``'s prefill at batch x length on a (data,
+    model) ``MeshShape`` of ``sizes``: its parameters' bytes on one rank,
+    exact and as the CUDA caching allocator counts them
+    (``specs.allocated_bytes``: each leaf's 512-byte block, and the
+    segment of a large leaf whose remainder is too small to split)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import MeshShape
+    from repro_torch.launch.specs import arg_bytes_per_device, build_cell
+    mesh = MeshShape(("data", "model"), sizes)
+    plan = build_cell(get_config(arch), ShapeConfig(
+        f"prefill_{batch}x{length}", length, batch, "prefill"), mesh)
+    return {"bytes": arg_bytes_per_device(plan, mesh, only=(0,)),
+            "allocated": arg_bytes_per_device(plan, mesh, only=(0,),
+                                              allocated=True),
+            "plan": plan, "mesh": mesh}
+
+
+def phase_roofline(torch, families: dict, ptxas: dict) -> dict:
+    """11a: the dry-run and roofline of phase 10's phi4-mini prefill (4 x
+    4096) on one card, against what the card measured; then flash at the
+    per-rank shapes of 11b and 11c against its plain version."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import arg_bytes_per_device
+    from repro_torch.roofline import hw
+    from repro_torch.roofline.analysis import roofline_terms
+    phi4 = families["phi4"]
+    cell = dryrun_param_bytes(torch, "phi4_mini_3b", FAMILY_BATCH,
+                              FAMILY_LEN, (1, 1))
+    grown = phi4["param_bytes_allocated"]
+    log(f"11a dry-run: phi4-mini 4x{FAMILY_LEN} prefill on one card: "
+        f"parameters {cell['bytes']} B, {cell['allocated']} B as the "
+        f"caching allocator counts them; phase 10 allocated {grown} B")
+    expect(cell["allocated"] == grown, "dry-run parameter bytes differ "
+           "from what phase 10 allocated", cell["allocated"], grown)
+    t0 = time.perf_counter()
+    cost = dryrun.trace_cell(cell["plan"], cell["mesh"])
+    trace_s = time.perf_counter() - t0
+    args = arg_bytes_per_device(cell["plan"], cell["mesh"])
+    rl = roofline_terms(arch="phi4_mini_3b", shape="prefill", mesh="1x1",
+                        chips=1, hlo_flops=cost.flops,
+                        model_flops=cell["plan"].model_flops,
+                        hbm_bytes=args + dryrun.output_bytes(cost.out),
+                        collective_bytes=cost.collective_bytes)
+    bound = max(rl.compute_s, rl.memory_s)
+    measured = phi4["prefill"]["prefill_s"]
+    out = {"flops": cost.flops, "kernel_flops": cost.kernel_flops,
+           "model_flops": rl.model_flops, "compute_s": rl.compute_s,
+           "memory_s": rl.memory_s, "bound_s": bound,
+           "measured_s": measured, "roofline_fraction": bound / measured,
+           "param_bytes": cell["bytes"], "param_bytes_allocated": grown,
+           "trace_s": trace_s, "peak_flops": hw.PEAK_FLOPS_BF16,
+           "hbm_bw": hw.HBM_BW}
+    log(f"11a roofline: {json.dumps(out)}")
+    expect(bound <= measured, "the roofline bound exceeds the measured "
+           "prefill: a count or a constant is wrong", bound, measured)
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(11)
+    rows = []
+    for case in split_flash_cases():
+        rows.append({**flash_case(torch, case, g), **ptxas_of(
+            ptxas, "flash_attention", flash_tag(case))})
+        log("kernel " + json.dumps(rows[-1]))
+        expect(rows[-1]["kernel"] == "wgmma", "flash kernel", case)
+    out["flash_rows"] = rows
+    return out
+
+
+def split_flash_cases() -> list:
+    """The per-rank shapes flash runs at in 11b (phi4-mini's heads split
+    over two ranks) and 11c (one row a microbatch)."""
+    from repro_torch.configs import get_config
+    c = get_config("phi4_mini_3b")
+    whole = dict(H=c.num_heads, K=c.num_kv_heads, S=FAMILY_LEN,
+                 hd=c.head_dim, causal=True, window=None, dtype="bfloat16")
+    return [{**whole, "B": TP_BATCH, "H": c.num_heads // RANKS,
+             "K": c.num_kv_heads // RANKS},
+            {**whole, "B": FAMILY_BATCH // PP_MICRO}]
+
+
+def gloo_probe(rank, world, path):
+    """Which collectives this torch's gloo accepts for CUDA tensors; the
+    answers go to ``path`` as they come (a probe that hangs loses only
+    what follows it)."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    out = {}
+
+    def attempt(name, fn):
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "accepted"
+        except Exception as e:  # the answer, recorded
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+        if rank == 0:
+            with open(path, "w") as f:
+                json.dump(out, f)
+
+    x = torch.full((1024,), float(rank + 1), device=DEVICE)
+    attempt("all_reduce", lambda: dist.all_reduce(x.clone()))
+    attempt("all_gather_into_tensor", lambda: dist.all_gather_into_tensor(
+        torch.empty(1024 * world, device=DEVICE), x))
+    attempt("reduce_scatter_tensor", lambda: dist.reduce_scatter_tensor(
+        torch.empty(1024 // world, device=DEVICE), x))
+    attempt("broadcast", lambda: dist.broadcast(x.clone(), src=0))
+    attempt("all_to_all_single", lambda: dist.all_to_all_single(
+        torch.empty_like(x), x))
+
+    def p2p():
+        buf = x.clone()
+        op = dist.isend if rank == 0 else dist.irecv
+        op(buf, 1 - rank).wait()
+        if rank == 1:
+            expect(bool((buf == 1).all()), "send/recv delivered other bytes")
+    attempt("send_recv", p2p)
+    return out
+
+
+def nccl_probe(rank, world):
+    """Two NCCL ranks on one card: an all-reduce (NCCL's own reason goes
+    to standard error)."""
+    import torch
+    import torch.distributed as dist
+    os.environ["NCCL_DEBUG"] = "WARN"     # read when the communicator starts
+    torch.cuda.set_device(0)
+    x = torch.ones(1024, device=DEVICE)
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    return float(x[0])
+
+
+def draw_model(torch, cfg, seed: int):
+    """``cfg``'s model on the card, weights from ``seed``, as
+    ``full_model`` draws them."""
+    from repro_torch.models.model import Model
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    return Model(cfg, device=DEVICE).init_params(g)
+
+
+def allocator_blocks(torch, tensors: dict) -> dict:
+    """{name: the size of the caching allocator's block that holds the
+    tensor's storage}, from ``torch.cuda.memory_snapshot()``."""
+    blocks = {}
+    for seg in torch.cuda.memory_snapshot():
+        addr = seg["address"]
+        for b in seg["blocks"]:
+            if b["state"] == "active_allocated":
+                blocks[addr] = b["size"]
+            addr += b["size"]
+    return {k: blocks[t.untyped_storage().data_ptr()]
+            for k, t in tensors.items()}
+
+
+def float32_forward(torch, model, fn):
+    """``fn`` of ``model``'s float32 copy (float32 activations over the
+    same weights, as 10f's), the copy freed after."""
+    import dataclasses
+    from repro_torch.models.model import Model
+    cfg32 = dataclasses.replace(model.cfg, dtype="float32",
+                                param_dtype="float32")
+    m32 = Model(cfg32, device=DEVICE)
+    m32.load_state_dict(model.state_dict())
+    out = fn(m32)
+    del m32
+    torch.cuda.empty_cache()
+    return out
+
+
+def split_check(torch, got, want, want32, label: str) -> dict:
+    """11b and 11c: a split computation against one rank's, both against
+    the float32 forward (``SPLIT_OF_OWN``)."""
+    err, own = rel_err(torch, got, want32), rel_err(torch, want, want32)
+    out = {"rel_err_one_rank": rel_err(torch, got, want),
+           "rel_err_f32": err, "one_rank_rel_err_f32": own}
+    if got.dim() == 3 and got.shape[1] == 1:       # last logits
+        top2 = torch.topk(want.float(), 2, dim=-1).values
+        margin = float((top2[..., 0] - top2[..., 1]).min())
+        out["top2_margin"] = margin
+        if margin > 2 * out["rel_err_one_rank"] * float(want.abs().max()):
+            expect(bool((got.argmax(-1) == want.argmax(-1)).all()),
+                   label, "argmax differs beyond the tolerance")
+    expect(bool(torch.isfinite(got).all()), label, "not finite")
+    expect(err <= SPLIT_OF_OWN * own, label, "further from float32 than "
+           "the one rank", err, own)
+    return out
+
+
+def rank_pipeline(torch, rank: int, seed: int) -> dict:
+    """11c: phi4-mini's 32 layers in two stages of 16 (embedding on stage
+    0, final norm and head on stage 1), 4 x 4096 in PP_MICRO
+    microbatches; the last hidden state against one rank's forward."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import pipeline_parallel as PP
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers as L
+    cfg = get_config("phi4_mini_3b")
+    mesh = make_host_mesh(pipe=RANKS, device=DEVICE)
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed + 12)
+    tokens = torch.randint(0, cfg.vocab_size, (FAMILY_BATCH, FAMILY_LEN),
+                           generator=g, device=DEVICE)
+    model = draw_model(torch, cfg, seed)
+    with torch.no_grad():
+        want = want32 = None
+        if rank == 0:
+            want = model(tokens, mode="hidden")[0]
+            want32 = float32_forward(torch, model, lambda m: m(
+                tokens, mode="hidden")[0])
+        per = cfg.num_layers // RANKS
+        mine = model.layers[rank * per:(rank + 1) * per]
+        # this stage's parameters alone stay on the card
+        if rank == 0:
+            model._parameters["lm_head"] = None
+        else:
+            model._parameters["embed"] = None
+        model.layers = mine
+        torch.cuda.empty_cache()
+        held = sum(p.numel() * p.element_size() for p in model.parameters())
+        x = (model._embed(tokens) if rank == 0 else torch.zeros(
+            FAMILY_BATCH, FAMILY_LEN, cfg.d_model, device=DEVICE,
+            dtype=getattr(torch, cfg.dtype)))
+
+        def stage(layers, h):
+            for layer in layers:
+                h = layer(h)[0]
+            return h
+
+        for k in PP.HOST_COPY_BYTES:
+            PP.HOST_COPY_BYTES[k] = 0
+        reset_model_launches()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        h = PP.pipeline_forward(stage, mine, x, mesh=mesh,
+                                num_microbatches=PP_MICRO)
+        got = L.rmsnorm(model.final_norm, h, cfg.norm_eps)
+        logits = (model._logits(got[:, -1:]) if rank == RANKS - 1 else None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_model_launches()
+        out = {"wall_s": wall, "launches": launches,
+               "stage_param_bytes": held,
+               "host_copy_bytes": dict(PP.HOST_COPY_BYTES),
+               "bubble": (RANKS - 1) / (PP_MICRO + RANKS - 1),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        expect(launches["flash_attention"] == per * PP_MICRO and
+               launches["flash_wgmma"] == per * PP_MICRO,
+               "11c flash launches a stage (its layers, each microbatch)",
+               launches)
+        if logits is not None:
+            expect(bool(torch.isfinite(logits).all()), "11c logits")
+        if rank == 0:
+            out.update(split_check(torch, got, want, want32,
+                                   "11c pipeline hidden"))
+    del model, mine, x, h, got, want, want32
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_tensor_parallel(torch, rank: int, seed: int) -> dict:
+    """11b: phi4-mini's prefill, 2 x 4096, under make_rules("prefill")
+    on a (data 1, model 2) mesh: each rank draws the whole weights and
+    reshards them from a host copy; its parameters' memory, its prefill
+    time and flash launches, and the last logits against one rank's
+    prefill."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.elastic import reshard
+    from repro_torch.distributed.sharding import make_rules, use_rules
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.training.train_loop import _bind
+    cfg = get_config("phi4_mini_3b")
+    mesh = make_host_mesh(1, RANKS, device=DEVICE)
+    rules = make_rules("prefill", mesh)
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed + 11)
+    tokens = torch.randint(0, cfg.vocab_size, (TP_BATCH, FAMILY_LEN),
+                           generator=g, device=DEVICE)
+    model = draw_model(torch, cfg, seed)
+    with torch.no_grad():
+        want = want32 = None
+        if rank == 0:
+            want = model(tokens, mode="last_logits")[0].cpu()
+            want32 = float32_forward(torch, model, lambda m: m(
+                tokens, mode="last_logits")[0].cpu())
+        # the drawn weights as a logical checkpoint on the host; the card
+        # keeps only this rank's shards, each in a fresh segment (no
+        # cached block of another size to fit it into): what
+        # specs.allocated_bytes counts
+        full = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        del model
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        placed = reshard(full, mesh, rules)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - before
+        del full
+        # what the allocator gave each shard, against its own count
+        from repro_torch.launch.specs import allocated_bytes
+        locals_ = {k: v.to_local() for k, v in placed.items()}
+        got = allocator_blocks(torch, locals_)
+        nbytes = {k: t.numel() * t.element_size() for k, t in locals_.items()}
+        odd = {k: (n, got[k]) for k, n in nbytes.items()
+               if got[k] != allocated_bytes(n)}
+        shell = Model(cfg, device="meta")
+        _bind(shell, placed)
+        out = {"param_bytes": sum(nbytes.values()),
+               "param_bytes_allocated": held,
+               "blocks_off_the_count": odd}
+        expect(held == sum(got.values()), "11b memory grew by other than "
+               "the parameters' blocks", held, sum(got.values()))
+        # a block the allocator did not split keeps its segment's
+        # remainder, at most 1 MiB (kSmallSize), with a request of 1 MiB
+        # or more; every other block is the count's
+        expect(all(n >= 1 << 20 and 0 < b - allocated_bytes(n) <= 1 << 20
+                   for n, b in odd.values()), "11b a shard's block is "
+               "none the allocator gives its size", odd)
+        for run in ("cold", "warm"):
+            torch.cuda.reset_peak_memory_stats()
+            reset_model_launches()
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with use_rules(rules):
+                logits, _ = shell(tokens, mode="last_logits")
+            torch.cuda.synchronize()
+            out[f"{run}_s"] = time.perf_counter() - t0
+            out["launches"] = read_model_launches()
+            out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        expect(out["launches"]["flash_attention"] == cfg.num_layers and
+               out["launches"]["flash_wgmma"] == cfg.num_layers,
+               "11b flash launches a rank", out["launches"])
+        out["placements"] = str(logits.placements)
+        got, sent = to_host_gathered(torch, logits)
+        out["host_gather_bytes"] = sent
+        if rank == 0:
+            out.update(split_check(torch, got, want, want32,
+                                   "11b tensor-parallel logits"))
+    del placed, shell, logits, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def xlstm_f32(torch, seed: int):
+    """xlstm-350m at full width, float32 activations and weights (8d's),
+    drawn from ``seed``; its parameters and a DP_BATCH x DP_LEN batch
+    pair per step."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(XLSTM), dtype="float32",
+                              param_dtype="float32")
+    model = draw_model(torch, cfg, seed)
+    params = {k: v.detach() for k, v in model.state_dict().items()}
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed + 13)
+    batches = [torch.randint(0, cfg.vocab_size, (DP_BATCH, DP_LEN + 1),
+                             generator=g, device=DEVICE) for _ in range(2)]
+    return cfg, params, [(b[:, :-1].int(), b[:, 1:].int()) for b in batches]
+
+
+def grad_rel(torch, got: dict, want: dict) -> dict:
+    return {k: rel_err(torch, got[k], want[k]) for k in want}
+
+
+def rank_data_parallel(torch, rank: int, seed: int) -> dict:
+    """11d: xlstm-350m's train step (loss and gradients) under
+    make_rules("train", dp_only=True) on a (data 2, model 1) mesh, each
+    rank two of the four rows; the all-reduced gradients and the loss
+    against one rank's step on the same weights and rows."""
+    from repro_torch.distributed.elastic import reshard
+    from repro_torch.distributed.sharding import (make_rules, placements,
+                                                  use_rules)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.training.train_loop import TrainConfig, make_grad_fn
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    cfg, params, batches = xlstm_f32(torch, seed)
+    inputs, targets = batches[0]
+    tc = TrainConfig(device=DEVICE)
+    grad_fn = make_grad_fn(cfg, tc, model=Model(cfg, device="meta"))
+    out = {}
+    if rank == 0:                      # one rank: the reference, its spread
+        (loss1, _), g1 = grad_fn(params, inputs, targets)
+        bumped = {k: v * (1 + TRAIN_PERTURB) for k, v in params.items()}
+        _, g2 = grad_fn(bumped, inputs, targets)
+        spread = grad_rel(torch, g2, g1)
+        del bumped, g2
+    mesh = make_host_mesh(RANKS, 1, device=DEVICE)
+    rules = make_rules("train", mesh, dp_only=True)
+    placed = reshard(params, mesh, rules)
+    rows = placements(rules.resolve("batch", None), mesh)
+    t_in, t_tgt = (distribute_tensor(t, mesh, rows, src_data_rank=None)
+                   for t in (inputs, targets))
+    reset_model_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with use_rules(rules):
+        (loss, _), grads = grad_fn(placed, t_in, t_tgt)
+        whole = {k: g.redistribute(mesh, [Replicate()] * mesh.ndim)
+                 .to_local() for k, g in grads.items()}   # the all-reduce
+        loss = float(loss.full_tensor())
+    torch.cuda.synchronize()
+    out.update(step_s=time.perf_counter() - t0,
+               launches=read_model_launches(), loss=loss,
+               local_rows=int(t_in.to_local().shape[0]))
+    expect(out["launches"]["mlstm_chunkwise"] == 12, "11d mLSTM launches a "
+           "rank", out["launches"])
+    expect(out["local_rows"] == DP_BATCH // RANKS, "11d rows a rank")
+    if rank == 0:
+        err = grad_rel(torch, whole, g1)
+        bound = {k: max(TRAIN_GRAD_RTOL, 2 * spread[k]) for k in err}
+        worst = max(err, key=lambda k: err[k] / bound[k])
+        out.update(loss_one_rank=float(loss1),
+                   loss_rel=abs(loss - float(loss1)) / abs(float(loss1)),
+                   grad_rel_max=max(err.values()), worst_leaf=worst,
+                   worst_err=err[worst], worst_bound=bound[worst])
+        expect(out["loss_rel"] <= DP_LOSS_RTOL, "11d loss",
+               out["loss_rel"])
+        bad = {k: (err[k], bound[k]) for k in err if err[k] > bound[k]}
+        expect(not bad, "11d gradients differ from one rank's", bad)
+        del g1
+    del placed, grads, whole
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_compressed(torch, rank: int, seed: int) -> dict:
+    """11e: two steps of 11d's model, each rank's own rows' gradient
+    reduced by compressed_psum_pod over a (pod 2) mesh with error
+    feedback, against the plain mean; the error state after step 1 bit
+    for bit."""
+    from repro_torch.distributed.grad_compression import (
+        compressed_psum_pod, dequantize_int8, psum_mean, quantize_int8)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
+                                                adamw_update)
+    from repro_torch.training.train_loop import TrainConfig, make_grad_fn
+    cfg, params, batches = xlstm_f32(torch, seed)
+    mesh = make_host_mesh(1, 1, pod=RANKS, device=DEVICE)
+    grad_fn = make_grad_fn(cfg, TrainConfig(device=DEVICE),
+                           model=Model(cfg, device="meta"))
+    opt, opt_cfg = adamw_init(params), AdamWConfig(lr=3e-3)
+    rows = slice(rank * DP_BATCH // RANKS, (rank + 1) * DP_BATCH // RANKS)
+    err, out = None, {"steps": []}
+    reset_model_launches()
+    for step, (inputs, targets) in enumerate(batches):
+        _, g = grad_fn(params, inputs[rows], targets[rows])
+        t0 = time.perf_counter()
+        red, new_err = compressed_psum_pod(g, mesh, error=err)
+        torch.cuda.synchronize()
+        reduce_s = time.perf_counter() - t0
+        sent = {k: gk.float() + (err[k] if err is not None else 0)
+                for k, gk in g.items()}
+        mean = psum_mean(sent, mesh, "pod")
+        worst = max((float((red[k].float() - mean[k]).abs().max())
+                     / max(float(mean[k].abs().max()), 1e-30), k)
+                    for k in g)
+        expect(worst[0] <= COMPRESS_ATOL_OF_MAX, "11e compressed mean",
+               step, worst)
+        if step == 0:
+            for k, gk in g.items():
+                gf = gk.float()
+                q, s = quantize_int8(gf)
+                want = gf - dequantize_int8(q.to(torch.int32), s,
+                                            gf.numel(), gf.shape)
+                expect(torch.equal(new_err[k], want), "11e error state "
+                       "after step 1 differs from gf - deq(quant(gf))", k)
+        out["steps"].append({"worst_rel": worst[0], "worst_leaf": worst[1],
+                             "reduce_s": reduce_s,
+                             "payload_bytes": 4 * sum(
+                                 -(-v.numel() // 256) * 256
+                                 for v in g.values())})
+        with torch.no_grad():
+            params, opt, _ = adamw_update(opt_cfg, red, opt, params)
+        err = new_err
+    out["launches"] = read_model_launches()
+    expect(out["launches"]["mlstm_chunkwise"] == 12 * len(batches),
+           "11e mLSTM launches", out["launches"])
+    return out
+
+
+def elastic_pipeline(seed: int, cfg):
+    """11f's data: DP_BATCH x DP_LEN batches of a Markov corpus."""
+    from repro_torch.data.pipeline import DataPipeline, TokenDataset
+    from repro_torch.data.synthetic import markov_corpus
+    tokens = markov_corpus(DP_BATCH * DP_LEN * 32, cfg.vocab_size, seed=seed)
+    return DataPipeline(TokenDataset(tokens,
+                                     shard_tokens=DP_BATCH * DP_LEN * 2),
+                        batch=DP_BATCH, seq_len=DP_LEN, seed=seed)
+
+
+def elastic_train(torch, cfg, seed: int, mesh, root: str | None, steps: int,
+                  head: dict | None, perturb: float = 0.0):
+    """xlstm-350m (float32) trained to ``steps`` under the DP rules on
+    ``mesh`` (None: one rank, no rules), committing every two steps to a
+    catalog over the store at ``root`` whose ``main`` starts at ``head``'s
+    tables, its initial weights scaled by ``1 + perturb``; returns the
+    run's history and its head."""
+    from repro_torch.checkpoints.checkpointing import CheckpointManager
+    from repro_torch.core.catalog import Catalog
+    from repro_torch.core.store import FileStore
+    from repro_torch.distributed.elastic import reshard
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.models.model import Model
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train_loop import (TrainConfig,
+                                                 make_sharded_train_step,
+                                                 train)
+    opt = AdamWConfig(lr=3e-3)
+    tc = TrainConfig(steps=steps, ckpt_every=2, device=DEVICE)
+    ckpt = None
+    if root is not None:
+        catalog = Catalog(FileStore(root))
+        if head:
+            catalog.write_tables("main", head, message="restore head")
+        ckpt = CheckpointManager(catalog)
+    params = {k: v.detach() * (1 + perturb) for k, v in
+              draw_model(torch, cfg, seed).state_dict().items()}
+    kw = {"params": params}
+    if mesh is not None:
+        rules = make_rules("train", mesh, dp_only=True)
+        kw = {"params": reshard(params, mesh, rules),
+              "opt_state": reshard(adamw_init(params), mesh, rules),
+              "jit_fn": make_sharded_train_step(
+                  cfg, opt, tc, mesh, rules, model=Model(cfg, device="meta"))}
+    reset_model_launches()
+    res = train(cfg, pipeline=elastic_pipeline(seed, cfg), opt_cfg=opt,
+                tc=tc, ckpt=ckpt, **kw)
+    return {"history": [(h["step"], h["loss"], h["step_time_s"])
+                        for h in res["history"]],
+            "launches": read_model_launches(),
+            "head": dict(ckpt.catalog.head("main").tables) if ckpt else None}
+
+
+def rank_elastic(torch, rank: int, seed: int, root: str) -> dict:
+    """11f, first part: two DP steps on the two ranks, committed."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = dataclasses.replace(get_config(XLSTM), dtype="float32",
+                              param_dtype="float32")
+    mesh = make_host_mesh(RANKS, 1, device=DEVICE)
+    out = elastic_train(torch, cfg, seed, mesh,
+                        os.path.join(root, f"rank{rank}"), 2, None)
+    expect([h[0] for h in out["history"]] == [0, 1], "11f steps",
+           out["history"])
+    return out
+
+
+def phase11_rank(rank, world, seed, root):
+    """The phase-11 group's rank: 11c, 11b, 11d, 11e, 11f's first part,
+    one after another, each freeing what it drew."""
+    import torch
+    torch.cuda.set_device(0)            # both ranks share the one card
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for name, fn in (("pipeline", rank_pipeline),
+                     ("tensor_parallel", rank_tensor_parallel),
+                     ("data_parallel", rank_data_parallel),
+                     ("compressed", rank_compressed)):
+        t0 = time.perf_counter()
+        out[name] = fn(torch, rank, seed)
+        out[name]["phase_s"] = time.perf_counter() - t0
+        log(f"11 rank {rank} {name}: {json.dumps(out[name])}")
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["elastic"] = rank_elastic(torch, rank, seed, root)
+    out["elastic"]["phase_s"] = time.perf_counter() - t0
+    log(f"11 rank {rank} elastic: {json.dumps(out['elastic'])}")
+    return out
+
+
+def phase_distributed(torch, seed: int, families: dict, ptxas: dict
+                      ) -> dict:
+    """11: 11a in this process; the probes and 11b-11f's ranks in groups
+    of RANKS processes on the one card; 11f's restore here."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_ranks, make_host_mesh, run_ranks
+    out = {"roofline": phase_roofline(torch, families, ptxas)}
+    tmp = tempfile.mkdtemp(prefix="phase11-")
+    try:
+        # which collectives gloo takes for CUDA tensors; NCCL, two ranks
+        probe_file = os.path.join(tmp, "gloo_probe.json")
+        try:
+            run_ranks(gloo_probe, RANKS, probe_file, backend="gloo",
+                      timeout_s=PROBE_TIMEOUT_S)
+        except RuntimeError as e:
+            log(f"11 gloo probe group failed: {str(e)[:300]}")
+        out["gloo_cuda"] = (json.load(open(probe_file))
+                            if os.path.exists(probe_file) else {})
+        log(f"11 gloo with CUDA tensors: {json.dumps(out['gloo_cuda'])}")
+        try:
+            got = run_ranks(nccl_probe, RANKS, backend="nccl",
+                            timeout_s=PROBE_TIMEOUT_S)
+            out["nccl_two_ranks_one_card"] = f"accepted: {got}"
+        except RuntimeError as e:
+            lines = [ln for ln in str(e).splitlines()
+                     if "Duplicate" in ln or "ncclInvalidUsage" in ln]
+            out["nccl_two_ranks_one_card"] = " | ".join(lines[-2:])[:600]
+        log(f"11 NCCL, two ranks on one card: "
+            f"{out['nccl_two_ranks_one_card']}")
+
+        t0 = time.perf_counter()
+        ranks = run_ranks(phase11_rank, RANKS, seed, tmp, backend="gloo",
+                          timeout_s=RANK_TIMEOUT_S)
+        out["group_s"] = time.perf_counter() - t0
+        for name in ("pipeline", "tensor_parallel", "data_parallel",
+                     "compressed", "elastic"):
+            out[name] = [r[name] for r in ranks]
+        # 11f: the parent restores the ranks' head onto a one-card mesh
+        cfg = dataclasses.replace(get_config(XLSTM), dtype="float32",
+                                  param_dtype="float32")
+        head = out["elastic"][0]["head"]
+        root = os.path.join(tmp, "rank0")
+        init_ranks(0, 1, os.path.join(tmp, "parent-rendezvous"), "gloo")
+        try:
+            mesh = make_host_mesh(1, 1, device=DEVICE)
+            resumed = elastic_train(torch, cfg, seed, mesh, root, 4, head)
+        finally:
+            dist.destroy_process_group()
+        # the same commit restored without a mesh; one rank throughout,
+        # and the same at weights moved by TRAIN_PERTURB: the spread
+        # float32 leaves a run's losses after AdamW steps
+        plain = elastic_train(torch, cfg, seed, None, root, 4, head)
+        straight = elastic_train(torch, cfg, seed, None, None, 4, None)
+        bumped = elastic_train(torch, cfg, seed, None, None, 4, None,
+                               perturb=TRAIN_PERTURB)
+
+        def rel(a, b):
+            return [abs(x[1] - y[1]) / abs(y[1]) for x, y in zip(a, b)]
+        steps = [h[0] for h in resumed["history"]]
+        out["restore"] = {
+            "dp_steps": out["elastic"][0]["history"],
+            "resumed": resumed["history"], "plain_resume": plain["history"],
+            "uninterrupted": straight["history"],
+            "rel_plain": rel(resumed["history"], plain["history"]),
+            "rel_uninterrupted": rel(resumed["history"],
+                                     straight["history"][2:]),
+            "spread": rel(bumped["history"], straight["history"])[2:],
+            "launches": resumed["launches"]}
+        log(f"11f restore: {json.dumps(out['restore'])}")
+        r = out["restore"]
+        expect(steps == [2, 3] and [h[0] for h in plain["history"]]
+               == [2, 3], "11f resumed at", steps)
+        expect(max(r["rel_plain"]) <= DP_LOSS_RTOL, "11f the one-card "
+               "mesh's steps differ from the plain restore's",
+               r["rel_plain"])
+        bound = [max(DP_LOSS_RTOL, 2 * x) for x in r["spread"]]
+        expect(all(a <= b for a, b in zip(r["rel_uninterrupted"], bound)),
+               "11f resumed losses differ from the uninterrupted run",
+               r["rel_uninterrupted"], bound)
+        tp_want = dryrun_param_bytes(torch, "phi4_mini_3b", TP_BATCH,
+                                     FAMILY_LEN, (1, RANKS))
+        out["tp_dryrun_param_bytes"] = tp_want["allocated"]
+        for r, tp in enumerate(out["tensor_parallel"]):
+            expect(tp["param_bytes"] == tp_want["bytes"], "11b rank", r,
+                   "parameter bytes differ from the dry-run's",
+                   tp["param_bytes"], tp_want["bytes"])
+            log(f"11b rank {r}: parameters {tp['param_bytes']} B (dry-run "
+                f"{tp_want['bytes']}); memory_allocated grew "
+                f"{tp['param_bytes_allocated']} B, the dry-run's allocator "
+                f"count {tp_want['allocated']}; blocks off the count "
+                f"{tp['blocks_off_the_count']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name in ("pipeline", "tensor_parallel", "data_parallel",
+                 "compressed", "elastic"):
+        log(f"11 {name}: {json.dumps(out[name])}")
+    return out
+
+
+def phase11_paths(dist_out: dict) -> dict:
+    """{kernel: {path: launches}} of phase 11, each path's launches over
+    its ranks."""
+    def total(name, kernel):
+        return sum(r["launches"][kernel] for r in dist_out[name])
+    return {"flash_attention": {
+                f"tp_prefill_{TP_BATCH}x{FAMILY_LEN}":
+                    total("tensor_parallel", "flash_attention"),
+                f"gpipe_{FAMILY_BATCH}x{FAMILY_LEN}":
+                    total("pipeline", "flash_attention")},
+            "mlstm_chunkwise": {
+                f"dp_step_{DP_BATCH}x{DP_LEN}":
+                    total("data_parallel", "mlstm_chunkwise"),
+                "compressed_2_steps": total("compressed", "mlstm_chunkwise"),
+                "elastic_2_dp_steps": total("elastic", "mlstm_chunkwise"),
+                "elastic_restore_2_steps":
+                    dist_out["restore"]["launches"]["mlstm_chunkwise"]}}
 
 
 def ptxas_kernels(report: str) -> dict:
@@ -2839,6 +3658,11 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from repro_torch.examples.tpch import generate
+    from repro_torch.roofline import hw
+    global HBM_BYTES_PER_S, PEAK_FLOPS
+    HBM_BYTES_PER_S = hw.HBM_BW
+    PEAK_FLOPS = {"bfloat16": hw.PEAK_FLOPS_BF16,
+                  "float32": hw.PEAK_FLOPS_FP32}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2933,7 +3757,13 @@ def main() -> int:
             for row in family_rows:
                 f.write(json.dumps(row) + "\n")
     families = phase_families(torch, args.seed)
-    phase_done("10 (model families)", clock)
+    clock = phase_done("10 (model families)", clock)
+
+    # 11. distribution: two ranks on the one card
+    torch.cuda.empty_cache()
+    dist_out = phase_distributed(torch, args.seed, families, ptxas)
+    phase11 = phase11_paths(dist_out)
+    phase_done("11 (distribution)", clock)
 
     kernels = []
     for name, ops_ in (("masked_segment_sum", ("sum",)),
@@ -2997,12 +3827,14 @@ def main() -> int:
         family = {path: families[m][k]["launches"][name]
                   for path, (m, k) in FAMILY_PATHS.items()}
         by_path.update(family)
-        launches = by_path[main_path]
+        # phase 11 is this slice's path: its launches, over its ranks
+        by_path.update(phase11.get(name, {}))
+        launches = (sum(phase11[name].values()) if name in phase11
+                    else by_path[main_path])
         extra = {}
         if name == "flash_attention":
-            # phase 10 is this slice's path: its launches, and 10a's cases
-            krows = krows + family_rows
-            launches = sum(family.values())
+            # with phase 10's and 11a's cases
+            krows = krows + family_rows + dist_out["roofline"]["flash_rows"]
             extra["phase10_wgmma"] = sum(
                 families[m][k]["launches"]["flash_wgmma"]
                 for m, k in FAMILY_PATHS.values())

@@ -1,6 +1,10 @@
 """Distribution and fault tolerance (the port of ``repro/distributed``).
 
-Only ``fault_tolerance.py`` is ported so far: crash-consistent restart of
-the training loop from the branch head. Sharding, pipeline parallelism,
-gradient compression and elastic restore are ROADMAP Queue 1 item 6.
+- ``sharding.py``: logical-axis rules, resolved onto a ``DeviceMesh``'s
+  DTensor placements (``lshard``), the kernels entered on local shards;
+- ``elastic.py``: a logical checkpoint placed onto any mesh (``reshard``);
+- ``grad_compression.py``: int8 all-reduce with error feedback over
+  ``pod``;
+- ``pipeline_parallel.py``: GPipe stages over a ``pipe`` mesh dim;
+- ``fault_tolerance.py``: crash-consistent restart from the branch head.
 """

@@ -15,9 +15,9 @@ The guarantees come from composition with the paper's machinery:
    (`repro_torch.data.pipeline.ShardLeaseQueue`); slow readers lose leases,
    work is reassigned, and transactional publication deduplicates.
 4. **Elastic downscale** — on repeated failure of the same pod, the
-   caller can pass a smaller mesh; `repro.distributed.elastic.reshard`
-   replaces any device placement there (not ported yet: ROADMAP Queue 1
-   item 6).
+   caller can pass a smaller mesh; `repro_torch.distributed.elastic.
+   reshard` places the restored logical checkpoint on it
+   (`examples/elastic_rescale.py`).
 
 `FailureInjector` deterministically kills the "worker" at chosen steps so
 tests can assert all of the above without real hardware.

@@ -26,7 +26,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels.autograd import wants_grad
+from repro_torch.kernels.autograd import meta_call, wants_grad
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_ref)
@@ -49,9 +49,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"inputs lie on several devices: {devices}")
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
+    if q.device.type == "meta":
+        B, H, sq, hd = q.shape
+        skv = k.shape[2]
+        # the kernel: 4·hd per live pair; the plain backward recomputes P
+        # and takes four more products over every (query, key) block
+        return meta_call("flash_attention", q.shape, q.dtype,
+                         4 * hd * live_pairs(sq, skv, causal, window) * B * H,
+                         10 * hd * sq * skv * B * H, q, k, v)
     if wants_grad(q, k, v):
         return _FlashKernel.apply(q, k, v, causal, window)
     return _launch(q, k, v, causal, window)
+
+
+def live_pairs(sq: int, skv: int, causal: bool, window: int | None) -> int:
+    """The (query, key) pairs ``band_mask`` keeps, counted without it."""
+    i = torch.arange(sq, dtype=torch.int64)
+    hi = torch.clamp(i, max=skv - 1) if causal else torch.full_like(i, skv - 1)
+    lo = torch.clamp(i - window + 1, min=0) if window is not None \
+        else torch.zeros_like(i)
+    return int(torch.clamp(hi - lo + 1, min=0).sum())
 
 
 def _launch(q, k, v, causal, window) -> torch.Tensor:

@@ -28,7 +28,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels.autograd import recompute_grads, wants_grad
+from repro_torch.kernels.autograd import meta_call, recompute_grads, wants_grad
 from repro_torch.kernels.mlstm import kernel
 from repro_torch.kernels.mlstm.ref import mlstm_ref, mlstm_two_pass_ref
 
@@ -53,6 +53,13 @@ def mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return mlstm_ref(q, k, v, log_i, log_f)
     inputs = (q, k, v, log_i, log_f)
+    if q.device.type == "meta":
+        BH, S, hd = q.shape
+        # 4·hd² + 4·hd per (b·h, step); the backward recomputes the
+        # two-pass form and differentiates it: three times the forward
+        flops = (4 * hd * hd + 4 * hd) * BH * S
+        return meta_call("mlstm_chunkwise", q.shape, torch.float32, flops,
+                         3 * flops, *inputs)
     if wants_grad(*inputs):
         return _MlstmKernel.apply(*inputs)
     return _launch(*inputs)

@@ -23,7 +23,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels.autograd import recompute_grads, wants_grad
+from repro_torch.kernels.autograd import meta_call, recompute_grads, wants_grad
 from repro_torch.kernels.rglru import kernel
 from repro_torch.kernels.rglru.ref import rglru_scan_ref
 
@@ -49,6 +49,8 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"inputs lie on several devices: {devices}")
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b)
+    if a.device.type == "meta":         # element-wise: no products
+        return meta_call("rglru_scan", a.shape, torch.float32, 0, 0, a, b)
     if wants_grad(a, b):
         return _RglruKernel.apply(a, b)
     return _launch(a, b)

@@ -3,8 +3,11 @@
 The port of ``repro/models/layers.py``. The functions take their
 parameters as ``p``, anything that maps ``repro``'s parameter names to
 tensors: a plain dict (the tests hand ``repro``'s arrays over that way)
-or one of the :class:`ParamModule`\\ s the model is built from. No
-sharding annotations: one card.
+or one of the :class:`ParamModule`\\ s the model is built from.
+Tensors are tagged with logical axes (:func:`~repro_torch.distributed.
+sharding.lshard`) where ``repro``'s are: a no-op on plain tensors and
+outside rules, a redistribution of a DTensor under them. The flash
+kernel takes each rank's own heads (``sharding.local_call``).
 
 Attention in prefill goes through the flash attention kernel
 (:func:`repro_torch.kernels.flash_attention.ops.flash_attention`), where
@@ -29,6 +32,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (gather_inner, gather_inner_grad,
+                                              local_call, lshard, merge_last,
+                                              split_last)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 
 __all__ = ["NEG_INF", "ParamModule", "mm", "rmsnorm", "rope",
@@ -104,11 +110,20 @@ def dense_spec(shape, dtype, scale=None) -> tuple:
 
 
 def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` in the promoted dtype of the two, as JAX's ``@``."""
+    """``x @ w`` in the promoted dtype of the two, as JAX's ``@``.
+
+    Under rules a DTensor ``x`` sharded on an inner dim (the sequence,
+    under sequence parallelism) is gathered on it first, as Megatron's
+    sequence parallelism gathers before a projection: the product folds
+    (B, S) into one dim, and two sharded dims folded into one make a
+    layout whose redistributions DTensor plans by a search that grows
+    exponentially with the mesh's dims. The gradient flowing back into
+    the product is gathered the same way."""
+    x = gather_inner(x)
     if x.dtype != w.dtype:
         dt = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(dt), w.to(dt)
-    return x @ w
+    return gather_inner_grad(x @ w)
 
 
 # ---------------------------------------------------------------------------
@@ -189,13 +204,15 @@ def _project_qkv(p: Params, x, xkv, cfg: ModelConfig, positions,
     q = mm(x, p["wq"])
     if "bq" in p:
         q = q + p["bq"]
-    q = q.reshape(B, S, H, hd)
-    k = mm(xkv, p["wk"]).reshape(B, skv, K, hd)
-    v = mm(xkv, p["wv"]).reshape(B, skv, K, hd)
+    q = split_last(q, H, hd)
+    k = split_last(mm(xkv, p["wk"]), K, hd)
+    v = split_last(mm(xkv, p["wv"]), K, hd)
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, kv_positions, cfg.rope_theta)
-    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    return (lshard(q.transpose(1, 2), "batch", "heads", "seq", "head_dim"),
+            lshard(k.transpose(1, 2), "batch", "kv_heads", "seq", "head_dim"),
+            lshard(v.transpose(1, 2), "batch", "kv_heads", "seq", "head_dim"))
 
 
 def _out_proj(p: Params, o):
@@ -217,7 +234,7 @@ def attention_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     cross = kind == "cross"
     if cross and encoder_out is None:
         raise ValueError("cross attention needs encoder_out")
-    B, S, _ = x.shape
+    S = x.shape[1]
     xkv = encoder_out if cross else x
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
@@ -227,11 +244,14 @@ def attention_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                            use_rope=not cross)
     k, v = k.contiguous(), v.contiguous()
     window = cfg.local_window if kind == "local" else None
-    out = flash_attention(q.contiguous(), k, v, causal=not cross,
-                          window=window)
-    out = _out_proj(p, out.transpose(1, 2).reshape(
-        B, S, cfg.num_heads * cfg.head_dim))
-    return (out, (k, v)) if return_kv else out
+    out = local_call(flash_attention, q.contiguous(), k, v, lead=2,
+                     causal=not cross, window=window)
+    out = _out_proj(p, merge_last(out.transpose(1, 2)))
+    out = lshard(out, "batch", "seq", "embed")
+    if not return_kv:
+        return out
+    return out, (lshard(k, "batch", None, "kv_seq", "head_dim"),
+                 lshard(v, "batch", None, "kv_seq", "head_dim"))
 
 
 def attention_decode(p: Params, x: torch.Tensor, cache: dict,
@@ -254,7 +274,8 @@ def attention_decode(p: Params, x: torch.Tensor, cache: dict,
     positions = torch.full((B, 1), pos, device=x.device)
     q, k_new, v_new = _project_qkv(p, x, x, cfg, positions, positions,
                                    use_rope=True)
-    ck, cv = cache["k"], cache["v"]
+    ck = lshard(cache["k"], "batch", "kv_heads", "kv_seq", "head_dim")
+    cv = lshard(cache["v"], "batch", "kv_heads", "kv_seq", "head_dim")
     smax = ck.shape[2]
     ins = pos % smax
     ck[:, :, ins] = k_new[:, :, 0].to(ck.dtype)
@@ -308,4 +329,5 @@ def mlp_forward(p: Params, x: torch.Tensor, cfg: ModelConfig):
         h = F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"])
     else:                           # jax.nn.gelu is the tanh approximation
         h = F.gelu(mm(x, p["w_up"]), approximate="tanh")
-    return mm(h, p["w_down"])
+    h = lshard(h, "batch", "seq", "ff")
+    return lshard(mm(h, p["w_down"]), "batch", "seq", "embed")

@@ -45,6 +45,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import embedding, lshard, split_last
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
@@ -146,7 +147,7 @@ class Block(nn.Module):
             else:
                 f = L.mlp_forward(self.ffn, h, cfg)
             x = x + f
-        return x, new_cache, aux
+        return lshard(x, "batch", "seq", "embed"), new_cache, aux
 
 
 def _cross_decode(p, x, kv, cfg: ModelConfig):
@@ -154,7 +155,7 @@ def _cross_decode(p, x, kv, cfg: ModelConfig):
     ``repro``'s ``_cross_decode``: no bias on q or on the output."""
     B = x.shape[0]
     H, hd = cfg.num_heads, cfg.head_dim
-    q = L.mm(x, p["wq"]).reshape(B, 1, H, hd).transpose(1, 2)
+    q = split_last(L.mm(x, p["wq"]), H, hd).transpose(1, 2)
     out = L.full_attention(q, kv["k"], kv["v"], causal=False)
     return L.mm(out.transpose(1, 2).reshape(B, 1, H * hd), p["wo"])
 
@@ -228,7 +229,9 @@ class Model(L.ParamModule):
         return self
 
     def _embed(self, tokens):
-        return self.embed[tokens].to(getattr(torch, self.cfg.dtype))
+        # a row lookup (the vocab-parallel one on a vocab-sharded table)
+        return embedding(tokens, self.embed).to(
+            getattr(torch, self.cfg.dtype))
 
     def _logits(self, x):
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
@@ -275,6 +278,7 @@ class Model(L.ParamModule):
         if vision_embeds is not None:           # VLM early fusion
             n_patch = vision_embeds.shape[1]
             x = torch.cat([vision_embeds.to(x.dtype), x[:, n_patch:]], dim=1)
+        x = lshard(x, "batch", "seq", "embed")
         enc_out = None
         if self.cfg.encoder_layers:
             if audio_embeds is None:
@@ -285,6 +289,7 @@ class Model(L.ParamModule):
         P = self.cfg.pattern_len
         n_scan = self.cfg.n_scan_blocks * P
         for lo in range(0, n_scan, P):
+            x = lshard(x, "batch", "seq", "embed")
             x, kv, aux = self._superblock(self.layers[lo:lo + P], x, enc_out,
                                           return_kv, remat)
             kvs += kv
@@ -301,7 +306,8 @@ class Model(L.ParamModule):
         if mode == "hidden":
             out = x
         else:
-            out = self._logits(x[:, -1:] if mode == "last_logits" else x)
+            out = lshard(self._logits(x[:, -1:] if mode == "last_logits"
+                                      else x), "batch", None, "vocab")
         return (out, aux, kvs) if return_kv else (out, aux)
 
     @staticmethod
@@ -362,4 +368,4 @@ class Model(L.ParamModule):
             x, c, _ = layer(x, cache=cache, decode=True)
             new.append(c)
         x = L.rmsnorm(self.final_norm, x, self.cfg.norm_eps)
-        return self._logits(x), new
+        return lshard(self._logits(x), "batch", None, "vocab"), new

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import axis_sizes, current_rules, lshard
 from repro_torch.models import layers as L
 
 __all__ = ["MoE", "moe_params", "group_size", "route", "moe_forward"]
@@ -115,6 +116,22 @@ def route(p, xg: torch.Tensor, cfg: ModelConfig):
     return probs, expert_idx, pos, keep, gates
 
 
+def _expert_axis_tag(E: int) -> str | None:
+    """The expert activations' logical tag: ``"experts"`` when the
+    expert count divides the mesh's expert axis, else None (the weights
+    then fall back to intra-expert TP, ``elastic.param_spec``), as in
+    ``repro``."""
+    r = current_rules()
+    if r is None or r.mesh is None:
+        return "experts"
+    ent = r.rules.get("experts")
+    sizes = axis_sizes(r.mesh)
+    size = 1
+    for ax in (ent if isinstance(ent, tuple) else (ent,)):
+        size *= sizes.get(ax, 1)
+    return "experts" if size and E % size == 0 else None
+
+
 def _route_groups(p, xg: torch.Tensor, cfg: ModelConfig, n: int):
     """Route the groups ``xg`` (N = n * B, g, d), chunk-major; returns
     (out (N, g, d) in xg's dtype, aux of each of the n chunks (n,))."""
@@ -134,12 +151,16 @@ def _route_groups(p, xg: torch.Tensor, cfg: ModelConfig, n: int):
     xin = xpad[torch.arange(N, device=dev)[:, None], src]      # (N, E*c, d)
     # the experts, batched over E: (E, N*c, d)
     xe = xin.reshape(N, E, c, d).transpose(0, 1).reshape(E, N * c, d)
+    etag = _expert_axis_tag(E)
+    xe = lshard(xe, etag, None, "embed")
     ew = p["experts"]
     if "w_gate" in ew:
         h = F.silu(_bmm(xe, ew["w_gate"])) * _bmm(xe, ew["w_up"])
     else:                           # jax.nn.gelu is the tanh approximation
         h = F.gelu(_bmm(xe, ew["w_up"]), approximate="tanh")
-    eout = _bmm(h, ew["w_down"]).reshape(E, N, c, d).transpose(0, 1)
+    h = lshard(h, etag, None, "ff")
+    eout = lshard(_bmm(h, ew["w_down"]), etag, None, "embed")
+    eout = eout.reshape(E, N, c, d).transpose(0, 1)
     eflat = eout.reshape(N, E * c, d).float()
     # combine: each pair's expert output, gate-summed in float32
     slot = torch.where(keep, pos, c).clamp_max(c - 1)
@@ -166,4 +187,4 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig):
     out = out.reshape(n, B, g, d).transpose(0, 1).reshape(B, S, d)
     if "shared" in p:
         out = out + L.mlp_forward(p["shared"], x, cfg)
-    return out, aux.mean()
+    return lshard(out, "batch", "seq", "embed"), aux.mean()

@@ -17,7 +17,8 @@ Prefill (S > 1) runs the recurrence through the RG-LRU scan kernel
 (:func:`repro_torch.kernels.rglru.ops.rglru_scan`), where ``repro``'s
 model calls ``jax.lax.associative_scan``; decode takes one sequential
 step and reaches no kernel. The gate products ``xf @ w_a`` and ``xf @
-w_x`` are float32 (the card runs them without TF32).
+w_x`` are float32 (the card runs them without TF32). Under sharding
+rules the scan takes each rank's own batch rows (``sharding.local_call``).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import local_call, lshard
 from repro_torch.kernels.rglru.ops import rglru_scan
 from repro_torch.models.layers import Params, dense_spec, mm
 
@@ -84,13 +86,16 @@ def rglru_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     xr = mm(x, p["proj_rec"])
     xr, conv_tail = _causal_conv(xr, p["conv_w"],
                                  state["conv"] if state is not None else None)
+    xr = lshard(xr, "batch", "seq", "ff")
     a, b = rglru_gates(p, xr)
     if x.shape[1] == 1 and state is not None:
         h = (a[:, 0] * state["h"] + b[:, 0])[:, None, :]  # one step, no scan
     else:
-        h = rglru_scan(a.contiguous(), b.contiguous(),
-                       state["h"] if state is not None else None)
-    out = mm((gate.float() * h).to(x.dtype), p["proj_out"])
+        h = (rglru_scan(a.contiguous(), b.contiguous(), state["h"])
+             if state is not None else
+             local_call(rglru_scan, a.contiguous(), b.contiguous(), lead=1))
+    out = lshard(mm((gate.float() * h).to(x.dtype), p["proj_out"]),
+                 "batch", "seq", "embed")
     new_state = None
     if state is not None:
         new_state = {"conv": conv_tail, "h": h[:, -1, :]}

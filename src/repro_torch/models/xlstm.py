@@ -15,7 +15,12 @@ exponential gating with the paper's max-state stabilizer.
   is sequential: a Python loop over S in plain torch (``repro`` scans
   it, and has no Pallas kernel for it). ``repro`` broadcasts the
   recurrent weights over the batch before its scan to keep a gradient
-  sharded; one card has nothing to shard, so the port does not.
+  sharded under GSPMD; the port's DTensor step reduces a replicated
+  weight's gradient once, after the backward, so it does not.
+
+Under sharding rules the tensors carry ``repro``'s logical tags
+(``lshard``) and the mLSTM kernel takes each rank's own batch rows and
+heads (``sharding.local_call``).
 
 Dtypes follow ``repro``: projections in ``cfg.dtype``, gates, states and
 the recurrences in float32, the mixed output cast back to ``x.dtype``.
@@ -28,6 +33,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (local_call, lshard, merge_last,
+                                              split_last)
 from repro_torch.kernels.mlstm.ops import mlstm
 from repro_torch.models.layers import Params, dense_spec, mm
 
@@ -96,22 +103,21 @@ def mlstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
                   state: dict | None = None, chunk: int = 256):
     """x: (B, S, d). ``state`` {"C", "n", "m"} in decode (S = 1), else
     None. Returns (out, new state or None)."""
-    B, S, _ = x.shape
+    S = x.shape[1]
     H, hd = cfg.num_heads, cfg.head_dim
 
     def heads(name):
-        return mm(x, p[name]).reshape(B, S, H, hd).transpose(1, 2)
+        return split_last(mm(x, p[name]), H, hd).transpose(1, 2)
 
-    q, k, v = heads("wq"), heads("wk"), heads("wv")          # (B, H, S, hd)
+    q, k, v = (lshard(heads(n), "batch", "heads", "seq", "head_dim")
+               for n in ("wq", "wk", "wv"))                  # (B, H, S, hd)
     gates = x.float() @ p["w_if"] + p["b_if"]                # (B, S, 2H)
     log_i = gates[..., :H].transpose(1, 2)                   # (B, H, S)
-    log_f = F.logsigmoid(gates[..., H:]).transpose(1, 2)
+    log_f = _logsigmoid(gates[..., H:]).transpose(1, 2)
 
     if state is None:
-        def flat(t):
-            return t.reshape(B * H, *t.shape[2:]).contiguous()
-        h = mlstm(flat(q), flat(k), flat(v), flat(log_i), flat(log_f),
-                  chunk=chunk).view(B, H, S, hd)
+        h = local_call(_mlstm_heads, q, k, v, log_i, log_f, lead=2,
+                       chunk=chunk)
         new_state = None
     else:   # one decode step from a carried state: repro's chunk
         if S != 1:
@@ -119,8 +125,26 @@ def mlstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
         h, C, n, m = _mlstm_chunk(q, k, v, log_i, log_f,
                                   state["C"], state["n"], state["m"])
         new_state = {"C": C, "n": n, "m": m}
-    out = h.transpose(1, 2).reshape(B, S, H * hd).to(x.dtype)
-    return mm(out, p["wo"]), new_state
+    out = merge_last(h.transpose(1, 2)).to(x.dtype)
+    return lshard(mm(out, p["wo"]), "batch", "seq", "embed"), new_state
+
+
+def _logsigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``log(sigmoid(x))``, element-wise; on a DTensor each rank takes its
+    own elements (``local_call``): DTensor has no sharding rule for this
+    op's backward."""
+    return local_call(F.logsigmoid, x, lead=x.ndim)
+
+
+def _mlstm_heads(q, k, v, log_i, log_f, *, chunk: int):
+    """The kernel over (B, H, S, hd) heads, flattened to (B·H, S, hd)
+    and back."""
+    B, H, S, hd = q.shape
+
+    def flat(t):
+        return t.reshape(B * H, *t.shape[2:]).contiguous()
+    return mlstm(flat(q), flat(k), flat(v), flat(log_i), flat(log_f),
+                 chunk=chunk).view(B, H, S, hd)
 
 
 def mlstm_state_init(cfg: ModelConfig, batch: int, device=None) -> dict:
@@ -155,17 +179,21 @@ def slstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     B, S, d = x.shape
     H = cfg.num_heads
     hd = d // H
-    zx = (mm(x, p["w_in"]).float() + p["b"]).reshape(B, S, 4, H, hd)
+    # the gates whole on every rank: the recurrence unbinds them, which
+    # DTensor cannot do on a dim split over the model axis (the model
+    # axis replicates the sLSTM's loop)
+    zx = lshard(mm(x, p["w_in"]), "batch", "seq", None)
+    zx = (zx.float() + p["b"]).reshape(B, S, 4, H, hd)
     st = state if state is not None else slstm_state_init(cfg, B, x.device)
     c, n, m, h = st["c"], st["n"], st["m"], st["h"]          # (B, H, hd)
     # r (4, H, hd, hd) as (H, hd, 4 hd): one batched product per step
     r = p["r"].permute(1, 2, 0, 3).reshape(H, hd, 4 * hd)
-    hs = torch.empty(B, S, H, hd, dtype=torch.float32, device=x.device)
+    hs = []
     for t in range(S):
         rec = torch.bmm(h.transpose(0, 1), r)                 # (H, B, 4 hd)
         z = zx[:, t] + rec.view(H, B, 4, hd).permute(1, 2, 0, 3)
         i_t, f_t, z_in, o_t = z.unbind(1)
-        lfm = F.logsigmoid(f_t) + m
+        lfm = _logsigmoid(f_t) + m
         m_new = torch.maximum(lfm, i_t)
         i_p = torch.exp(i_t - m_new)
         f_p = torch.exp(lfm - m_new)
@@ -173,8 +201,10 @@ def slstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
         n = f_p * n + i_p
         h = torch.sigmoid(o_t) * c / n.clamp_min(1.0)
         m = m_new
-        hs[:, t] = h
-    y = mm(hs.reshape(B, S, d).to(x.dtype), p["w_out"])
+        hs.append(h)
+    hs = torch.stack(hs, dim=1)                              # (B, S, H, hd)
+    y = lshard(mm(hs.reshape(B, S, d).to(x.dtype), p["w_out"]),
+               "batch", "seq", "embed")
     new_state = ({"c": c, "n": n, "m": m, "h": h}
                  if state is not None else None)
     return y, new_state

@@ -42,12 +42,14 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.schema import TensorContract
 from repro_torch.core.store import tree_flatten, tree_unflatten
 from repro_torch.data.pipeline import DataPipeline
+from repro_torch.distributed.sharding import current_rules, lshard
+from repro_torch.models.layers import mm
 from repro_torch.models.model import Model
 from repro_torch.training.optimizer import (AdamWConfig, AdamWState,
                                             adamw_init, adamw_update)
 
 __all__ = ["TrainConfig", "batch_contract", "loss_fn", "make_grad_fn",
-           "make_train_step", "train"]
+           "make_train_step", "make_sharded_train_step", "train"]
 
 Params = dict[str, torch.Tensor]
 
@@ -106,13 +108,34 @@ class _Bf16GradBarrier(torch.autograd.Function):
 
 def _chunk_ce(h, t, head, vocab_size: int):
     """Summed CE and summed logz² of one chunk, in float32."""
-    logits = h.float() @ head.float()
+    logits = mm(h.float(), head.float())
     if head.shape[1] != vocab_size:          # mask vocab-padding columns
         pad = torch.arange(head.shape[1], device=h.device) >= vocab_size
         logits = torch.where(pad, -1e30, logits)
     logz = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, t.long()[..., None])[..., 0]
-    return (logz - tgt).sum(), logz.square().sum()
+    return (logz - _target_logit(logits, t)).sum(), logz.square().sum()
+
+
+def _target_logit(logits, t):
+    """``logits[..., t]``. Logits sharded over the vocabulary (a DTensor
+    under rules that give ``vocab`` a mesh axis) take it as a masked sum
+    over the vocabulary: each rank sums its own columns (at most one
+    holds the target; the rest add zeros, so the value is exact) and the
+    partial sums are reduced, where a gather across shards would need
+    the whole row on every rank."""
+    if _vocab_sharded(logits):
+        hit = torch.arange(logits.shape[-1], device=logits.device) \
+            == t.long()[..., None]
+        return torch.where(hit, logits, 0.0).sum(-1)
+    return torch.gather(logits, -1, t.long()[..., None])[..., 0]
+
+
+def _vocab_sharded(x) -> bool:
+    if current_rules() is None:
+        return False
+    from torch.distributed.tensor import DTensor, Shard
+    return isinstance(x, DTensor) and any(
+        isinstance(p, Shard) and p.dim == x.ndim - 1 for p in x.placements)
 
 
 def _bind(model: Model, params: Params) -> None:
@@ -213,8 +236,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             loss, parts = zero, {"ce": zero, "z": zero, "aux": zero}
             for i in range(M):
                 rows = slice(i * m, (i + 1) * m)
+                # keep microbatch slices batch-sharded, as repro does
                 (l_i, p_i), g = grad_fn(
-                    params, inputs[rows], targets[rows],
+                    params, lshard(inputs[rows], "batch", None),
+                    lshard(targets[rows], "batch", None),
                     {k: v[rows] for k, v in extra.items()} if extra
                     else None)
                 grads = {k: grads[k] + g[k].float() for k in grads}
@@ -233,11 +258,67 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
 
 def _like(tree: Any, like: Any) -> Any:
     """``tree``'s leaves (a checkpoint's CPU tensors) on the device and in
-    the dtype of ``like``'s."""
+    the dtype of ``like``'s; a DTensor leaf of ``like`` gives its mesh and
+    placements (each rank keeps its shard of the logical value)."""
     leaves, _ = tree_flatten(tree)
     ref, _ = tree_flatten(like)
-    return tree_unflatten(like, [x.to(device=r.device, dtype=r.dtype)
-                                 for x, r in zip(leaves, ref)])
+    return tree_unflatten(like, [_place(x, r) for x, r in zip(leaves, ref)])
+
+
+def _place(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    mesh = getattr(like, "device_mesh", None)
+    if mesh is None:
+        return x.to(device=like.device, dtype=like.dtype)
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(x.to(device=mesh.device_type, dtype=like.dtype),
+                             mesh, like.placements, src_data_rank=None)
+
+
+def _logical(tree: Any) -> Any:
+    """``tree`` with each DTensor leaf made whole (a collective: every
+    rank calls it); plain leaves as they are. Checkpoints hold logical
+    values, which restore onto any mesh."""
+    leaves, _ = tree_flatten(tree)
+    return tree_unflatten(tree, [x.full_tensor() if hasattr(x, "full_tensor")
+                                 else x for x in leaves])
+
+
+def make_sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                            tc: TrainConfig, mesh, rules, *,
+                            model: Model | None = None) -> Callable:
+    """:func:`make_train_step` under sharding ``rules`` on the
+    ``DeviceMesh`` ``mesh``: every rank passes the same global batch,
+    which is split by the rules' ``batch`` axes (each rank keeps its own
+    rows), and the step runs with the rules active. Parameters and
+    optimizer state are DTensors placed by
+    ``distributed.elastic.reshard``, and the step returns them in the
+    same placements; its metrics replicated."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.distributed.sharding import placements, use_rules
+    step = make_train_step(cfg, opt_cfg, tc, model=model)
+    rows = placements(rules.resolve("batch", None), mesh)
+
+    def like(new, old):
+        leaves, _ = tree_flatten(new)
+        ref, _ = tree_flatten(old)
+        return tree_unflatten(old, [x.redistribute(mesh, r.placements)
+                                    for x, r in zip(leaves, ref)])
+
+    def sharded_step(params, opt_state, inputs, targets):
+        with use_rules(rules):
+            inputs, targets = (distribute_tensor(t, mesh, rows,
+                                                 src_data_rank=None)
+                               for t in (inputs, targets))
+            new_p, new_o, metrics = step(params, opt_state, inputs, targets)
+            # back to the arguments' placements (the gradients' partial
+            # sums are reduced here: data parallelism's all-reduce)
+            return (like(new_p, params), like(new_o, opt_state),
+                    {k: v.redistribute(mesh, [Replicate()] * mesh.ndim)
+                     if hasattr(v, "device_mesh") else v
+                     for k, v in metrics.items()})
+
+    return sharded_step
 
 
 def train(cfg: ModelConfig, *, pipeline: DataPipeline,
@@ -250,7 +331,10 @@ def train(cfg: ModelConfig, *, pipeline: DataPipeline,
     when present. The weights are drawn on the device from a
     ``torch.Generator`` seeded with ``tc.seed`` unless ``params`` are
     given. ``jit_fn`` is a prebuilt train step (``repro``'s jitted one;
-    here any function of :func:`make_train_step`'s signature)."""
+    here any function of :func:`make_train_step`'s signature, such as
+    :func:`make_sharded_train_step`'s, with ``params`` and ``opt_state``
+    DTensors: a restore then places the checkpoint like them, and a save
+    gathers them first)."""
     device = torch.device(tc.device)
     model = Model(cfg, device=device)
     if params is None:
@@ -284,13 +368,16 @@ def train(cfg: ModelConfig, *, pipeline: DataPipeline,
         t0 = time.perf_counter()
         params, opt_state, metrics = step_fn(params, opt_state, inputs,
                                              targets)
-        metrics = {k: float(v) for k, v in metrics.items()}
+        metrics = {k: float(_logical(v)) for k, v in metrics.items()}
         metrics["step_time_s"] = time.perf_counter() - t0
         history.append({"step": step, **metrics})
         if on_step:
             on_step(step, metrics)
-        if ckpt is not None and (step + 1) % tc.ckpt_every == 0:
-            ckpt.save(step=step + 1, params=params, opt_state=opt_state,
-                      data_state=pipeline.state.to_json(),
-                      metrics=metrics, code=f"{cfg.name}@{step + 1}")
+        if (step + 1) % tc.ckpt_every == 0:
+            # sharded state is gathered on every rank, whichever saves
+            whole_p, whole_o = _logical(params), _logical(opt_state)
+            if ckpt is not None:
+                ckpt.save(step=step + 1, params=whole_p, opt_state=whole_o,
+                          data_state=pipeline.state.to_json(),
+                          metrics=metrics, code=f"{cfg.name}@{step + 1}")
     return {"params": params, "opt_state": opt_state, "history": history}
