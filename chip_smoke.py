@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--sf 1] [--seed 0] [--log-dir DIR]
+    python3 chip_smoke.py [--sf 1] [--seed 0] [--log-dir DIR] [--only 11g]
 
 Phases, each of which must pass (any failure raises and exits non-zero
 before the result line):
@@ -266,7 +266,19 @@ before the result line):
       one-card mesh at the committed step 2 and trained to step 4: the
       losses within ``DP_LOSS_RTOL`` of the same commit restored without
       a mesh, and against an uninterrupted one-rank run within the larger
-      of that and twice the run's own spread under ``TRAIN_PERTURB``.
+      of that and twice the run's own spread under ``TRAIN_PERTURB``;
+   g. granite-moe-3b's 2 x 4096 prefill at published width and depth
+      under ``make_rules("prefill")`` on a (data 1, model 2) mesh: 20 of
+      its 40 experts a rank (expert parallelism) and 12 of its 24 heads,
+      drawn and resharded as b's, its parameters' bytes and blocks held
+      as b's; 32 flash launches a rank, all ``flash_wgmma``; the operand
+      bytes its collectives hand gloo; the last logits against one
+      rank's, as b's (``SPLIT_OF_OWN``); layer 0's routing against one
+      rank's: the split's own input routed by one rank equal to the
+      split's except at float32 ties (``ROUTE_F32_TIE``), and one rank's
+      model (whose attention rounds otherwise) differing only at tokens
+      near a tie of the probabilities, each count printed. Run alone
+      with ``--only 11g`` (after the build; no result line).
 
 The last two lines of standard output are one JSON object of the
 kernels' numbers, then ``{"ok": true, "device": {...}}``.
@@ -2800,7 +2812,7 @@ def phase_families(torch, seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 RANKS = 2
-RANK_TIMEOUT_S = 300            # the phase-11 group, start to join
+RANK_TIMEOUT_S = 420            # the phase-11 group, start to join
 PROBE_TIMEOUT_S = 60            # each probe group
 TP_BATCH = 2                    # 11b: 2 x 4096 on a (data 1, model 2) mesh
 PP_MICRO = 4                    # 11c: 4 x 4096 in 4 microbatches, 2 stages
@@ -2818,6 +2830,11 @@ DP_BATCH, DP_LEN = 4, 128       # 11d-f: xlstm-350m, 2 rows a rank
 # from float32 against the one rank's 1.76e-2). The argmax
 # too, where the top-2 margin exceeds the error, as 10f holds it.
 SPLIT_OF_OWN = 2.0
+# 11g: layer 0's routing of the split's own input by one rank, against
+# the split's (the same float32 router product of the same bf16 tokens):
+# a token may differ only where two of its k + 1 largest probabilities
+# lie within float32 rounding of each other (a few ulps of ~1/E)
+ROUTE_F32_TIE = 1e-6
 # 11d: the DP step against one rank's step on the same weights and the
 # same four rows, float32 activations (8d's): the loss, a mean over 512
 # tokens, within 1e-5 of itself; each gradient, as max|dp - one| /
@@ -2888,7 +2905,7 @@ def dryrun_param_bytes(torch, arch: str, batch: int, length: int,
 def phase_roofline(torch, families: dict, ptxas: dict) -> dict:
     """11a: the dry-run and roofline of phase 10's phi4-mini prefill (4 x
     4096) on one card, against what the card measured; then flash at the
-    per-rank shapes of 11b and 11c against its plain version."""
+    per-rank shapes of 11b, 11c and 11g against its plain version."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.specs import arg_bytes_per_device
     from repro_torch.roofline import hw
@@ -2937,14 +2954,21 @@ def phase_roofline(torch, families: dict, ptxas: dict) -> dict:
 
 def split_flash_cases() -> list:
     """The per-rank shapes flash runs at in 11b (phi4-mini's heads split
-    over two ranks) and 11c (one row a microbatch)."""
+    over two ranks), 11c (one row a microbatch) and 11g (granite's
+    heads split over two ranks)."""
     from repro_torch.configs import get_config
-    c = get_config("phi4_mini_3b")
-    whole = dict(H=c.num_heads, K=c.num_kv_heads, S=FAMILY_LEN,
-                 hd=c.head_dim, causal=True, window=None, dtype="bfloat16")
-    return [{**whole, "B": TP_BATCH, "H": c.num_heads // RANKS,
-             "K": c.num_kv_heads // RANKS},
-            {**whole, "B": FAMILY_BATCH // PP_MICRO}]
+
+    def whole(c):
+        return dict(H=c.num_heads, K=c.num_kv_heads, S=FAMILY_LEN,
+                    hd=c.head_dim, causal=True, window=None,
+                    dtype="bfloat16")
+
+    def split(c):
+        return {**whole(c), "B": TP_BATCH, "H": c.num_heads // RANKS,
+                "K": c.num_kv_heads // RANKS}
+    phi4, granite = get_config("phi4_mini_3b"), get_config("granite_moe_3b")
+    return [split(phi4), {**whole(phi4), "B": FAMILY_BATCH // PP_MICRO},
+            split(granite)]
 
 
 def gloo_probe(rank, world, path):
@@ -3130,6 +3154,44 @@ def rank_pipeline(torch, rank: int, seed: int) -> dict:
     return out
 
 
+def place_shards(torch, cfg, full: dict, mesh, rules, label: str):
+    """The card keeps only this rank's shards of the host checkpoint
+    ``full``, each in a fresh segment (no cached block of another size
+    to fit it into): what specs.allocated_bytes counts. Returns the
+    placed DTensors, a meta model bound to them, and their bytes: exact,
+    as memory_allocated grew, and the blocks off the allocator's count."""
+    from repro_torch.distributed.elastic import reshard
+    from repro_torch.launch.specs import allocated_bytes
+    from repro_torch.models.model import Model
+    from repro_torch.training.train_loop import _bind
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    placed = reshard(full, mesh, rules)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    # what the allocator gave each shard, against its own count
+    locals_ = {k: v.to_local() for k, v in placed.items()}
+    got = allocator_blocks(torch, locals_)
+    nbytes = {k: t.numel() * t.element_size() for k, t in locals_.items()}
+    odd = {k: (n, got[k]) for k, n in nbytes.items()
+           if got[k] != allocated_bytes(n)}
+    shell = Model(cfg, device="meta")
+    _bind(shell, placed)
+    out = {"param_bytes": sum(nbytes.values()),
+           "param_bytes_allocated": held,
+           "blocks_off_the_count": odd}
+    expect(held == sum(got.values()), label, "memory grew by other than "
+           "the parameters' blocks", held, sum(got.values()))
+    # a block the allocator did not split keeps its segment's remainder,
+    # at most 1 MiB (kSmallSize), with a request of 1 MiB or more; every
+    # other block is the count's
+    expect(all(n >= 1 << 20 and 0 < b - allocated_bytes(n) <= 1 << 20
+               for n, b in odd.values()), label, "a shard's block is none "
+           "the allocator gives its size", odd)
+    return placed, shell, out
+
+
 def rank_tensor_parallel(torch, rank: int, seed: int) -> dict:
     """11b: phi4-mini's prefill, 2 x 4096, under make_rules("prefill")
     on a (data 1, model 2) mesh: each rank draws the whole weights and
@@ -3138,11 +3200,8 @@ def rank_tensor_parallel(torch, rank: int, seed: int) -> dict:
     prefill."""
     import torch.distributed as dist
     from repro_torch.configs import get_config
-    from repro_torch.distributed.elastic import reshard
     from repro_torch.distributed.sharding import make_rules, use_rules
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models.model import Model
-    from repro_torch.training.train_loop import _bind
     cfg = get_config("phi4_mini_3b")
     mesh = make_host_mesh(1, RANKS, device=DEVICE)
     rules = make_rules("prefill", mesh)
@@ -3157,39 +3216,12 @@ def rank_tensor_parallel(torch, rank: int, seed: int) -> dict:
             want = model(tokens, mode="last_logits")[0].cpu()
             want32 = float32_forward(torch, model, lambda m: m(
                 tokens, mode="last_logits")[0].cpu())
-        # the drawn weights as a logical checkpoint on the host; the card
-        # keeps only this rank's shards, each in a fresh segment (no
-        # cached block of another size to fit it into): what
-        # specs.allocated_bytes counts
+        # the drawn weights as a logical checkpoint on the host
         full = {k: v.detach().cpu() for k, v in model.state_dict().items()}
         del model
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        before = torch.cuda.memory_allocated()
-        placed = reshard(full, mesh, rules)
-        torch.cuda.synchronize()
-        held = torch.cuda.memory_allocated() - before
+        placed, shell, out = place_shards(torch, cfg, full, mesh, rules,
+                                          "11b")
         del full
-        # what the allocator gave each shard, against its own count
-        from repro_torch.launch.specs import allocated_bytes
-        locals_ = {k: v.to_local() for k, v in placed.items()}
-        got = allocator_blocks(torch, locals_)
-        nbytes = {k: t.numel() * t.element_size() for k, t in locals_.items()}
-        odd = {k: (n, got[k]) for k, n in nbytes.items()
-               if got[k] != allocated_bytes(n)}
-        shell = Model(cfg, device="meta")
-        _bind(shell, placed)
-        out = {"param_bytes": sum(nbytes.values()),
-               "param_bytes_allocated": held,
-               "blocks_off_the_count": odd}
-        expect(held == sum(got.values()), "11b memory grew by other than "
-               "the parameters' blocks", held, sum(got.values()))
-        # a block the allocator did not split keeps its segment's
-        # remainder, at most 1 MiB (kSmallSize), with a request of 1 MiB
-        # or more; every other block is the count's
-        expect(all(n >= 1 << 20 and 0 < b - allocated_bytes(n) <= 1 << 20
-                   for n, b in odd.values()), "11b a shard's block is "
-               "none the allocator gives its size", odd)
         for run in ("cold", "warm"):
             torch.cuda.reset_peak_memory_stats()
             reset_model_launches()
@@ -3212,6 +3244,162 @@ def rank_tensor_parallel(torch, rank: int, seed: int) -> dict:
             out.update(split_check(torch, got, want, want32,
                                    "11b tensor-parallel logits"))
     del placed, shell, logits, want
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def first_route(record: dict):
+    """Record the first MoE call's routing (layer 0's): ``record`` gets
+    its input groups (on the card), and its float32 probabilities,
+    expert_idx and keep, on the host."""
+    from repro_torch.models import moe
+    route = moe.route
+
+    def recorded(p, xg, cfg):
+        out = route(p, xg, cfg)
+        if not record:
+            record.update(xg=xg.detach(), probs=out[0].detach().cpu(),
+                          idx=out[1].cpu(), keep=out[3].cpu())
+        return out
+
+    moe.route = recorded
+    try:
+        yield record
+    finally:
+        moe.route = route
+
+
+def route_flips(torch, got: dict, want: dict, k: int) -> dict:
+    """Layer 0's routing on the split against one rank's, both (n, B, g,
+    k). The split's layer-0 input is rounded otherwise (its attention's
+    output projection is summed over the ranks), so the router's
+    probabilities differ by ``dp`` = max|p_split - p_one| of a token: a
+    token whose experts differ, or come in another order, must have two
+    neighbours among its k + 1 largest probabilities within 2 dp of each
+    other (a near-tie). A flip moves
+    the queue places of later tokens of its group, so a token whose
+    experts agree may still keep or drop otherwise, but only in a group
+    with a flip."""
+    moved = (got["idx"] != want["idx"]).any(-1)
+    kept = (got["keep"] != want["keep"]).any(-1) & ~moved
+    dp = (got["probs"] - want["probs"]).abs().amax(-1)
+    top = torch.sort(want["probs"], dim=-1, descending=True).values
+    gaps = top[..., :k] - top[..., 1:k + 1]
+    near = gaps.amin(-1) <= 2 * dp
+    flipped_group = moved.any(-1, keepdim=True)
+    out = {"tokens": int(moved.numel()),
+           "tokens_other_experts": int(moved.sum()),
+           "near_tie_tokens": int(near.sum()),
+           "tokens_other_keep_only": int(kept.sum()),
+           "max_dprob": float(dp.max())}
+    expect(bool((near | ~moved).all()), "11g routing differs from one "
+           "rank's away from a near-tie", out)
+    expect(bool((flipped_group | ~kept).all()), "11g keep differs from "
+           "one rank's in a group without a flip", out)
+    return out
+
+
+def same_input_route(torch, got: dict, router, cfg) -> dict:
+    """One rank's routing of the split's own layer-0 input (the whole
+    router, no rules) against the split's: equal, except at a token
+    whose k + 1 largest probabilities have two neighbours within
+    ROUTE_F32_TIE (float32 rounding of the router's product)."""
+    from repro_torch.models import moe
+    k = cfg.moe.experts_per_token
+    probs, idx, _, keep, _ = moe.route({"router": router}, got["xg"], cfg)
+    want = {"probs": probs.cpu(), "idx": idx.cpu(), "keep": keep.cpu()}
+    moved = ((got["idx"] != want["idx"]) | (got["keep"] != want["keep"])
+             ).any(-1)
+    top = torch.sort(want["probs"], dim=-1, descending=True).values
+    near = (top[..., :k] - top[..., 1:k + 1]).amin(-1) <= ROUTE_F32_TIE
+    out = {"tokens": int(moved.numel()), "tokens_differing": int(moved.sum()),
+           "float32_tie_tokens": int(near.sum()),
+           "max_dprob": float((got["probs"] - want["probs"]).abs().max())}
+    expect(bool((near | ~moved).all()), "11g routing of the same input "
+           "differs from one rank's away from a float32 tie", out)
+    return out
+
+
+def rank_expert_parallel(torch, rank: int, seed: int) -> dict:
+    """11g: granite-moe-3b's prefill, 2 x 4096, under make_rules("prefill")
+    on a (data 1, model 2) mesh: 20 of the 40 experts a rank (expert
+    parallelism) and 12 of the 24 heads; each rank draws the whole
+    weights and reshards them from a host copy, as 11b. Its parameters'
+    memory, its prefill time and flash launches, the bytes its
+    collectives hand gloo, the last logits against one rank's prefill
+    and layer 0's routing against one rank's."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import make_rules, use_rules
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.roofline.analysis import analyze_step
+    cfg = get_config("granite_moe_3b")
+    mesh = make_host_mesh(1, RANKS, device=DEVICE)
+    rules = make_rules("prefill", mesh)
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed + 17)
+    tokens = torch.randint(0, cfg.vocab_size, (TP_BATCH, FAMILY_LEN),
+                           generator=g, device=DEVICE)
+    model = draw_model(torch, cfg, seed)
+    want_route, got_route = {}, {}
+    with torch.no_grad():
+        want = want32 = None
+        if rank == 0:
+            with first_route(want_route):
+                want = model(tokens, mode="last_logits")[0].cpu()
+            want32 = float32_forward(torch, model, lambda m: m(
+                tokens, mode="last_logits")[0].cpu())
+        full = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        del model
+        placed, shell, out = place_shards(torch, cfg, full, mesh, rules,
+                                          "11g")
+        del full
+        E, H = cfg.moe.num_experts, cfg.num_heads
+        held = {"experts": placed["layers.0.ffn.experts.w_up"]
+                .to_local().shape[0],
+                "heads": placed["layers.0.mix.wq"].to_local().shape[1]
+                // cfg.head_dim}
+        out["rank_holds"] = held
+        expect(held == {"experts": E // RANKS, "heads": H // RANKS},
+               "11g a rank's experts and heads", held)
+        for run in ("cold", "warm"):
+            torch.cuda.reset_peak_memory_stats()
+            reset_model_launches()
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with use_rules(rules), first_route(got_route):
+                logits, _ = shell(tokens, mode="last_logits")
+            torch.cuda.synchronize()
+            out[f"{run}_s"] = time.perf_counter() - t0
+            out["launches"] = read_model_launches()
+            out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            got_route = {} if run == "cold" else got_route
+        expect(out["launches"]["flash_attention"] == cfg.num_layers and
+               out["launches"]["flash_wgmma"] == cfg.num_layers,
+               "11g flash launches a rank", out["launches"])
+        # the operand bytes of every collective one prefill issues, which
+        # gloo stages through the host for CUDA tensors (untimed: the
+        # tally runs Python on every op)
+        dist.barrier()
+        with use_rules(rules):
+            cost = analyze_step(lambda t: shell(t, mode="last_logits")[0],
+                                tokens)
+        out["exchange_bytes"] = cost.collective_bytes
+        out["exchange_ops"] = cost.collective_ops
+        out["placements"] = str(logits.placements)
+        got, sent = to_host_gathered(torch, logits)
+        out["host_gather_bytes"] = sent
+        if rank == 0:
+            out.update(split_check(torch, got, want, want32,
+                                   "11g expert-parallel logits"))
+            out["routing"] = route_flips(torch, got_route, want_route,
+                                         cfg.moe.experts_per_token)
+            out["routing_same_input"] = same_input_route(
+                torch, got_route, placed["layers.0.ffn.router"].to_local(),
+                cfg)
+    del placed, shell, logits, want, cost, got_route, want_route
     torch.cuda.empty_cache()
     return out
 
@@ -3423,9 +3611,10 @@ def rank_elastic(torch, rank: int, seed: int, root: str) -> dict:
     return out
 
 
-def phase11_rank(rank, world, seed, root):
-    """The phase-11 group's rank: 11c, 11b, 11d, 11e, 11f's first part,
-    one after another, each freeing what it drew."""
+def phase11_rank(rank, world, seed, root, only=None):
+    """The phase-11 group's rank: 11c, 11b, 11g, 11d, 11e, 11f's first
+    part, one after another, each freeing what it drew; or the one path
+    named ``only``."""
     import torch
     torch.cuda.set_device(0)            # both ranks share the one card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3433,13 +3622,18 @@ def phase11_rank(rank, world, seed, root):
     out = {}
     for name, fn in (("pipeline", rank_pipeline),
                      ("tensor_parallel", rank_tensor_parallel),
+                     ("expert_parallel", rank_expert_parallel),
                      ("data_parallel", rank_data_parallel),
                      ("compressed", rank_compressed)):
+        if only not in (None, name):
+            continue
         t0 = time.perf_counter()
         out[name] = fn(torch, rank, seed)
         out[name]["phase_s"] = time.perf_counter() - t0
         log(f"11 rank {rank} {name}: {json.dumps(out[name])}")
         torch.cuda.empty_cache()
+    if only is not None:
+        return out
     t0 = time.perf_counter()
     out["elastic"] = rank_elastic(torch, rank, seed, root)
     out["elastic"]["phase_s"] = time.perf_counter() - t0
@@ -3485,8 +3679,8 @@ def phase_distributed(torch, seed: int, families: dict, ptxas: dict
         ranks = run_ranks(phase11_rank, RANKS, seed, tmp, backend="gloo",
                           timeout_s=RANK_TIMEOUT_S)
         out["group_s"] = time.perf_counter() - t0
-        for name in ("pipeline", "tensor_parallel", "data_parallel",
-                     "compressed", "elastic"):
+        for name in ("pipeline", "tensor_parallel", "expert_parallel",
+                     "data_parallel", "compressed", "elastic"):
             out[name] = [r[name] for r in ranks]
         # 11f: the parent restores the ranks' head onto a one-card mesh
         cfg = dataclasses.replace(get_config(XLSTM), dtype="float32",
@@ -3542,11 +3736,46 @@ def phase_distributed(torch, seed: int, families: dict, ptxas: dict
                 f"{tp['param_bytes_allocated']} B, the dry-run's allocator "
                 f"count {tp_want['allocated']}; blocks off the count "
                 f"{tp['blocks_off_the_count']}")
+        out["ep_dryrun_param_bytes"] = expert_parallel_bytes(
+            torch, out["expert_parallel"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    for name in ("pipeline", "tensor_parallel", "data_parallel",
-                 "compressed", "elastic"):
+    for name in ("pipeline", "tensor_parallel", "expert_parallel",
+                 "data_parallel", "compressed", "elastic"):
         log(f"11 {name}: {json.dumps(out[name])}")
+    return out
+
+
+def expert_parallel_bytes(torch, ranks: list) -> int:
+    """11g: each rank's parameter bytes against the dry-run's count of
+    the same cell; returns the dry-run's allocator count."""
+    want = dryrun_param_bytes(torch, "granite_moe_3b", TP_BATCH, FAMILY_LEN,
+                              (1, RANKS))
+    for r, ep in enumerate(ranks):
+        expect(ep["param_bytes"] == want["bytes"], "11g rank", r,
+               "parameter bytes differ from the dry-run's",
+               ep["param_bytes"], want["bytes"])
+        log(f"11g rank {r}: parameters {ep['param_bytes']} B (dry-run "
+            f"{want['bytes']}); memory_allocated grew "
+            f"{ep['param_bytes_allocated']} B, the dry-run's allocator "
+            f"count {want['allocated']}; collectives' operand bytes "
+            f"{ep['exchange_bytes']}")
+    return want["allocated"]
+
+
+def phase_expert_parallel(torch, seed: int) -> dict:
+    """11g alone (``--only 11g``): its group of RANKS ranks on the card."""
+    import tempfile
+    from repro_torch.launch.mesh import run_ranks
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="phase11g-") as tmp:
+        ranks = run_ranks(phase11_rank, RANKS, seed, tmp, "expert_parallel",
+                          backend="gloo", timeout_s=RANK_TIMEOUT_S)
+    out = {"group_s": time.perf_counter() - t0,
+           "expert_parallel": [r["expert_parallel"] for r in ranks]}
+    out["ep_dryrun_param_bytes"] = expert_parallel_bytes(
+        torch, out["expert_parallel"])
+    log(f"11 expert_parallel: {json.dumps(out['expert_parallel'])}")
     return out
 
 
@@ -3558,6 +3787,8 @@ def phase11_paths(dist_out: dict) -> dict:
     return {"flash_attention": {
                 f"tp_prefill_{TP_BATCH}x{FAMILY_LEN}":
                     total("tensor_parallel", "flash_attention"),
+                f"ep_prefill_{TP_BATCH}x{FAMILY_LEN}":
+                    total("expert_parallel", "flash_attention"),
                 f"gpipe_{FAMILY_BATCH}x{FAMILY_LEN}":
                     total("pipeline", "flash_attention")},
             "mlstm_chunkwise": {
@@ -3642,6 +3873,9 @@ def main() -> int:
     ap.add_argument("--log-dir", default=None,
                     help="also write ptxas's reports and the kernel table "
                          "here")
+    ap.add_argument("--only", choices=["11g"], default=None,
+                    help="build the kernels and run this phase alone "
+                         "(prints no result line)")
     args = ap.parse_args()
 
     import numpy as np
@@ -3676,6 +3910,10 @@ def main() -> int:
     # 2. build
     ptxas = build_all(args)
     clock = phase_done("1-2 (card, build)", clock)
+    if args.only == "11g":
+        phase_expert_parallel(torch, args.seed)
+        phase_done("11g (expert parallelism)", clock)
+        return 0
 
     # 3. kernels
     rows = phase_kernels(torch)

@@ -40,6 +40,7 @@ import torch
 __all__ = ["AxisRules", "MeshShape", "PartitionSpec", "use_rules", "lshard",
            "logical_spec", "local_call", "named_sharding", "placements",
            "safe_spec", "split_last", "merge_last", "embedding",
+           "write_slot",
            "gather_inner", "gather_inner_grad",
            "axis_sizes", "TRAIN_RULES", "DECODE_RULES", "FSDP_RULES",
            "SP_SUFFIX", "DP_ONLY_RULES", "current_rules", "make_rules"]
@@ -273,6 +274,8 @@ def embedding(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
                for p in table.placements):
         return F.embedding(tokens, table)
     mesh = table.device_mesh
+    # a table split over d_model too (FSDP) is gathered on that dim first
+    table = _whole(table, (1,))
     tok_pl = (list(tokens.placements) if _is_dtensor(tokens)
               else [Replicate()] * mesh.ndim)
     vocab_dims = [md for md, p in enumerate(table.placements)
@@ -294,10 +297,48 @@ def embedding(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
         out = F.embedding(idx.clamp(0, rows.shape[0] - 1), rows)
         return out * hit[..., None].to(out.dtype)
 
+    # each rank's table gradient holds only its own tokens' rows: a
+    # partial sum over the mesh dims that split the tokens
+    grad_pl = [Partial() if isinstance(tp, Shard) and not isinstance(
+        p, Shard) else p for tp, p in zip(tok_pl, table.placements)]
     return local_map(lookup, out_placements=out_pl,
                      in_placements=(tok_pl if _is_dtensor(tokens) else None,
                                     list(table.placements)),
+                     in_grad_placements=(tok_pl, grad_pl),
                      device_mesh=mesh)(tokens, table)
+
+
+def write_slot(cache: torch.Tensor, dim: int, index: int,
+               value: torch.Tensor) -> None:
+    """``cache.select(dim, index).copy_(value)``, in place: a decode
+    step's new K/V into its ring slot. On a DTensor ``cache`` split over
+    ``dim`` (the KV sequence under decode rules), the rank that holds the
+    slot writes it into its own shard and the others write nothing;
+    ``value`` takes the cache's placements on its other dims."""
+    if not _under_rules(cache):
+        cache.select(dim, index).copy_(value)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = cache.device_mesh
+    lo, span = 0, cache.shape[dim]
+    want = []
+    for md, p in enumerate(cache.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            # torch.chunk's split, over the mesh dims in order
+            step = -(-span // mesh.size(md))
+            lo += mesh.get_local_rank(md) * step
+            span = step
+            want.append(Replicate())
+        elif isinstance(p, Shard):
+            want.append(Shard(p.dim - (p.dim > dim)))
+        else:
+            want.append(p)
+    if not _is_dtensor(value):
+        value = _replicated(value, mesh)
+    value = value.redistribute(mesh, want).to_local()
+    local = cache.to_local()
+    if lo <= index < lo + local.shape[dim]:
+        local.select(dim, index - lo).copy_(value)
 
 
 def _whole(x, dims):

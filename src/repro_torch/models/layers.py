@@ -34,7 +34,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (gather_inner, gather_inner_grad,
                                               local_call, lshard, merge_last,
-                                              split_last)
+                                              split_last, write_slot)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 
 __all__ = ["NEG_INF", "ParamModule", "mm", "rmsnorm", "rope",
@@ -278,8 +278,8 @@ def attention_decode(p: Params, x: torch.Tensor, cache: dict,
     cv = lshard(cache["v"], "batch", "kv_heads", "kv_seq", "head_dim")
     smax = ck.shape[2]
     ins = pos % smax
-    ck[:, :, ins] = k_new[:, :, 0].to(ck.dtype)
-    cv[:, :, ins] = v_new[:, :, 0].to(cv.dtype)
+    write_slot(ck, 2, ins, k_new[:, :, 0].to(ck.dtype))
+    write_slot(cv, 2, ins, v_new[:, :, 0].to(cv.dtype))
     ck_m = ck if ck.dtype == torch.bfloat16 else ck.to(torch.bfloat16)
     cv_m = cv if cv.dtype == torch.bfloat16 else cv.to(torch.bfloat16)
 

@@ -135,3 +135,41 @@ def test_allocated_bytes_model_the_caching_allocator():
     assert allocated_bytes(200192 * 3072 * 2) == 1174 * MiB
     # half of it: a 1.5 MiB remainder is split off
     assert allocated_bytes(100096 * 3072 * 2) == 100096 * 3072 * 2
+
+
+@pytest.mark.parametrize("arch", ["granite_moe_3b", "llama4_scout_17b"])
+def test_moe_decode_cell_runs_on_a_fake_256_rank_group(arch, tmp_path):
+    """The mixture of experts under the rules: granite's 40 experts fall
+    back to tensor parallelism inside each expert on the 16-wide model
+    axis, llama4's 16 take one a rank; each cell's row is ok."""
+    assert dryrun.main(["--arch", arch, "--shape", "decode_32k",
+                        "--out", str(tmp_path)]) == 0
+    row = json.loads((tmp_path / f"{arch}.decode_32k.single.json")
+                     .read_text())
+    assert row["status"] == "ok" and row["chips"] == 256
+    assert row["collective_bytes"] > 0 and row["hlo_flops"] > 0
+    assert row["hbm_ok"] and 0 < row["roofline_fraction"] <= 1
+
+
+@pytest.mark.parametrize("arch", ["granite_moe_3b", "llama4_scout_17b"])
+def test_moe_products_are_counted_for_every_slot(arch):
+    """``analyze_step`` counts the expert products over all E·c slots of
+    each group, as both packages compute them, not over the B·S·k routed
+    pairs."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.roofline.analysis import analyze_step
+    cfg = get_config(arch)
+    B, S, d, f = 2, 1024, cfg.d_model, cfg.d_ff
+    E, k = cfg.moe.num_experts, cfg.moe.experts_per_token
+    slots = E * moe._capacity(cfg) * (S // moe.group_size(cfg, S))
+    layer = moe.MoE(cfg, device="meta")
+    x = torch.empty(B, S, d, device="meta", dtype=torch.bfloat16)
+    with torch.no_grad():
+        cost = analyze_step(lambda t: moe.moe_forward(layer, t, cfg), x)
+    experts = (3 if cfg.act == "swiglu" else 2) * 2 * B * slots * d * f
+    # the combine's gate sum over k may run as a product too
+    assert experts <= cost.flops_by_op["aten.bmm"] <= \
+        experts + 2 * B * S * k * d
+    assert slots > S * k
