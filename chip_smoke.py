@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--sf 1] [--seed 0] [--log-dir DIR] [--only 11g]
+    python3 chip_smoke.py [--sf 1] [--seed 0] [--log-dir DIR] [--only 11g|12]
 
 Phases, each of which must pass (any failure raises and exits non-zero
 before the result line):
@@ -277,8 +277,37 @@ before the result line):
       rank's: the split's own input routed by one rank equal to the
       split's except at float32 ties (``ROUTE_F32_TIE``), and one rank's
       model (whose attention rounds otherwise) differing only at tokens
-      near a tie of the probabilities, each count printed. Run alone
-      with ``--only 11g`` (after the build; no result line).
+      near a tie of the probabilities, each count printed; and layer
+      0's MoE alone on the split's own layer-0 input with the split's
+      routing decisions, under the rules, against one rank's layer with
+      the same decisions: each rank's expert products bit for bit, the
+      layer within ``MOE_COMBINE_ROUNDINGS`` float32 roundings (the
+      logits' ``SPLIT_OF_OWN`` alone cannot catch a wrong split at
+      granite's random weights). Run alone with ``--only 11g`` (after
+      the build; no result line);
+12. (after 9, before 10) bfloat16 keys and the paper's entry points:
+   a. ``repro_torch/examples/bf16_keys.py``'s three nodes over phase 4's
+      ``lineitem`` (its numeric columns; one discount lane in 1,000 set
+      to -0.0, one in 997 to NaN) and an 11-row ``discount_band``, in
+      one ``Client.run`` on a branch, merged as one commit, on the
+      default backend: a GROUP BY on the bfloat16 (discount, tax) keys
+      (COUNT, SUM, MIN, MAX), the inner join read through Q1's ship-date
+      filter with the filter fused into the masked probe, and the left
+      join. ``torch_auto`` must route the group-by to ``torch`` and
+      both joins to ``partitioned``; all four lakehouse kernels must
+      launch on that run (the ``kernels`` line's ``bf16_keys`` path);
+      each table must equal the same run on ``vectorized`` bit for bit
+      (values, NULL masks, key bits, row order); the -0.0 lanes must
+      group and join with +0.0, and each NaN lane be its own group,
+      join nothing and keep NULL bands in the left join. Then the two
+      joins on ``partitioned`` and the group-by on ``torch`` as direct
+      calls on the card, each against ``vectorized``; every wall time
+      printed;
+   b. each of the nine ``repro_torch.examples`` entry points
+      (``ENTRY_POINTS``) through its ``main(device="cuda")``, each
+      asserting what its root ``examples/*.py`` asserts; their printed
+      lines go to ``--log-dir``. Run alone with ``--only 12`` (after the
+      build and the data; no result line).
 
 The last two lines of standard output are one JSON object of the
 kernels' numbers, then ``{"ok": true, "device": {...}}``.
@@ -2418,6 +2447,155 @@ def phase_concurrent(torch, sf: float, seed: int, card: str
 
 
 # ---------------------------------------------------------------------------
+# phase 12: bfloat16 keys at SF1, and the paper's entry points on the card
+# ---------------------------------------------------------------------------
+
+BF16_PATH = "bf16_keys"
+ENTRY_POINTS = ("quickstart", "agent_branch_workflow", "incremental_reruns",
+                "optimized_pipeline", "sql_queries", "traced_run",
+                "concurrent_writers", "agent_swarm", "serve_pinned_commit")
+PHASE12_BUDGET_S = 40.0         # logged against, not enforced
+
+
+def auto_decisions(rec) -> list:
+    """Every ``auto_decision`` event of a traced run: (op, choice)."""
+    events = list(rec.orphan_events())
+    for sp in rec.spans():
+        events += sp.events
+    return [(e["op"], e["choice"]) for e in events
+            if e["name"] == "auto_decision"]
+
+
+def phase_bf16_keys(torch, np, li: dict, card: str) -> dict:
+    """12a: ``examples/bf16_keys.py``'s three nodes over ``li``, SF1's
+    lineitem as ``lineitem_for_keys`` gives it (phase 4's), through one
+    ``Client.run`` on the default backend; the four
+    lakehouse kernels must launch on that run, every join and group-by
+    node must be routed to a device delegate, each table must equal the
+    same run on ``vectorized`` bit for bit, and the key facts must hold
+    (``check_keys``). Then the joins and the group-by as direct calls on
+    ``partitioned`` and ``torch`` over the card, against ``vectorized``.
+    Returns the main path's launches."""
+    from repro_torch import exec as exec_backends
+    from repro_torch.core.planner import plan
+    from repro_torch.data.tables import Table
+    from repro_torch.examples import bf16_keys as bk
+    from repro_torch.examples.tpch import Q1_SHIPDATE
+    from repro_torch.exec.partitioned import PartitionedBackend
+    from repro_torch.exec.torch_backend import TorchBackend
+    from repro_torch.exec.vectorized import VectorizedBackend
+    from repro_torch.obs import tracing
+
+    expect(exec_backends.active_backend().name == "torch_auto",
+           "the default backend is not torch_auto")
+    client = bk.fresh_client(li)
+    pl = plan(bk.build_pipeline())
+    reset_launches()
+    with tracing() as rec:
+        t0 = time.perf_counter()
+        result, tables = bk.run(client, pl)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_launches()
+    decisions = auto_decisions(rec)
+    log(f"12a bf16 keys: status {result.state.status} in {wall:.3f} s; "
+        f"launches {json.dumps(launches)}; auto decisions {decisions} "
+        f"({card})")
+    expect(result.state.status == "committed", "12a run", result.state)
+    expect(all(n > 0 for n in launches.values()),
+           "12a a kernel of the path never launched", launches)
+    expect(sorted(decisions) == [("group_by_agg", "torch"),
+                                 ("hash_join", "partitioned"),
+                                 ("masked_hash_join", "partitioned")],
+           "12a torch_auto routed a node off the card", decisions)
+    for name, r in sorted(pl._runtime.items()):
+        log(f"12a node {name}: wall_s={r['wall_s']:.3f} "
+            f"rows_out={r['rows_out']}")
+
+    host = bk.fresh_client(li)
+    t0 = time.perf_counter()
+    with exec_backends.use_backend("vectorized"):
+        _, want = bk.run(host, plan(bk.build_pipeline()))
+    log(f"12a vectorized run: {time.perf_counter() - t0:.3f} s")
+    assert_same(np, tables, want, "12a vs vectorized", floats=())
+    checked = bk.check_keys(tables, li)
+    log(f"12a tables equal vectorized's bit for bit; keys: "
+        f"{json.dumps(checked)}")
+    del want, tables, host, client
+
+    # direct calls over the card, each against vectorized
+    lk = bk.keyed(Table(li), bk.BF16_API)._to_cols()
+    band = bk.keyed(Table(bk.discount_band()), bk.BF16_API)._to_cols()
+    keep = li["l_shipdate"] <= np.datetime64(Q1_SHIPDATE, "ns")
+    on = ("l_disc_key",)
+    specs = (("count", "l_quantity", "n"), ("sum", "l_quantity", "q"),
+             ("min", "l_extendedprice", "lo"),
+             ("max", "l_extendedprice", "hi"))
+    calls = {
+        "partitioned inner masked": (
+            PartitionedBackend(device=DEVICE), lambda be: be.masked_hash_join(
+                lk, band, on, "inner", left_mask=keep)),
+        "partitioned left": (
+            PartitionedBackend(device=DEVICE),
+            lambda be: be.hash_join(lk, band, on, "left")),
+        "torch group-by": (
+            TorchBackend(device=DEVICE), lambda be: be.group_by_agg(
+                lk, ("l_disc_key", "l_tax_key"), specs)),
+    }
+    for label, (be, fn) in calls.items():
+        t0 = time.perf_counter()
+        got = fn(be)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = fn(VectorizedBackend())
+        t2 = time.perf_counter()
+        same_columns(np, got, want, f"12a direct {label}")
+        rows = len(next(iter(got.values()))[0])
+        log(f"12a direct {label}: {t1 - t0:.3f} s, vectorized "
+            f"{t2 - t1:.3f} s, {rows} rows, equal ({card})")
+    del lk, band
+    return launches
+
+
+def phase12(torch, np, li: dict, log_dir: "str | None", card: str
+            ) -> dict:
+    """12a then 12b; returns 12a's main-path launches."""
+    t0 = time.perf_counter()
+    launches = phase_bf16_keys(torch, np, li, card)
+    t1 = time.perf_counter()
+    walls = phase_entry_points(log_dir, card)
+    t2 = time.perf_counter()
+    log(f"12 wall: 12a {t1 - t0:.1f} s, 12b {t2 - t1:.1f} s "
+        f"(budget {PHASE12_BUDGET_S:.0f} s); entry points "
+        f"{json.dumps(walls)}")
+    return launches
+
+
+def phase_entry_points(log_dir: "str | None", card: str) -> dict:
+    """12b: each port example's ``main(device="cuda")``; each asserts what
+    its root counterpart asserts, and any that raises fails the phase.
+    Their printed lines go to ``log_dir`` when given."""
+    import importlib
+    import io
+    out = {}
+    for name in ENTRY_POINTS:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mod.main(device=DEVICE)
+        out[name] = time.perf_counter() - t0
+        lines = buf.getvalue().splitlines()
+        log(f"12b {name}: {out[name]:.3f} s, {len(lines)} lines; last: "
+            f"{lines[-1][:160] if lines else ''} ({card})")
+        if log_dir:
+            with open(os.path.join(log_dir, f"example-{name}.txt"),
+                      "w") as f:
+                f.write(buf.getvalue())
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the model families that reached the port last, and phi4-mini
 # ---------------------------------------------------------------------------
 
@@ -2835,6 +3013,20 @@ SPLIT_OF_OWN = 2.0
 # a token may differ only where two of its k + 1 largest probabilities
 # lie within float32 rounding of each other (a few ulps of ~1/E)
 ROUTE_F32_TIE = 1e-6
+# 11g: layer 0's MoE alone, on the split's own layer-0 input in float32
+# and with the split's routing decisions, under the rules against one
+# rank's layer. Each rank's expert products are the same bf16 operations
+# on the same dispatched rows as one rank's products of those experts:
+# held bit for bit. The combine sums each token's k gated outputs in
+# float32: one product and at most k - 1 additions round, and the split
+# adds the two ranks' partial sums once more, so each side is within
+# (k + 1) float32 roundings (2^-24 of the sum of |gate * output|, at most
+# max|expert output| since the gates sum to 1 or less) of the exact sum,
+# and the two within MOE_COMBINE_ROUNDINGS = 2 (k + 1) = 18 of them at
+# granite's k = 8. An expert lost or counted twice moves a token by a
+# whole expert output, ~10^6 times that.
+MOE_COMBINE_ROUNDINGS = 18
+MOE_TOP_K = 8
 # 11d: the DP step against one rank's step on the same weights and the
 # same four rows, float32 activations (8d's): the loss, a mean over 512
 # tokens, within 1e-5 of itself; each gradient, as max|dp - one| /
@@ -3251,8 +3443,8 @@ def rank_tensor_parallel(torch, rank: int, seed: int) -> dict:
 @contextlib.contextmanager
 def first_route(record: dict):
     """Record the first MoE call's routing (layer 0's): ``record`` gets
-    its input groups (on the card), and its float32 probabilities,
-    expert_idx and keep, on the host."""
+    its input groups and all five of ``route``'s outputs (on the card),
+    and its float32 probabilities, expert_idx and keep, on the host."""
     from repro_torch.models import moe
     route = moe.route
 
@@ -3260,7 +3452,8 @@ def first_route(record: dict):
         out = route(p, xg, cfg)
         if not record:
             record.update(xg=xg.detach(), probs=out[0].detach().cpu(),
-                          idx=out[1].cpu(), keep=out[3].cpu())
+                          idx=out[1].cpu(), keep=out[3].cpu(),
+                          decisions=tuple(t.detach() for t in out))
         return out
 
     moe.route = recorded
@@ -3321,6 +3514,75 @@ def same_input_route(torch, got: dict, router, cfg) -> dict:
     return out
 
 
+def nested(flat: dict) -> dict:
+    """``{"a.b": t}`` as ``{"a": {"b": t}}``."""
+    out: dict = {}
+    for k, v in flat.items():
+        *head, last = k.split(".")
+        d = out
+        for h in head:
+            d = d.setdefault(h, {})
+        d[last] = v
+    return out
+
+
+def moe_layer_split(torch, cfg, mesh, rules, shell, layer0: dict,
+                    got: dict, rank: int) -> dict:
+    """11g: layer 0's MoE alone on the split's own layer-0 input (in
+    float32, so the combine's sum is not rounded again) with the split's
+    routing decisions, under the rules, against one rank's layer
+    (``layer0``, its whole parameters on the card) with the same
+    decisions: this rank's expert products bit for bit, the layer within
+    ``MOE_COMBINE_ROUNDINGS`` float32 roundings of max|expert output|."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.distributed.sharding import placements, use_rules
+    from repro_torch.models import moe
+    expect(cfg.moe.experts_per_token == MOE_TOP_K, "11g top-k")
+    n, B, g, d = got["xg"].shape
+    x = got["xg"].transpose(0, 1).reshape(B, n * g, d).float()
+    decisions, eouts = got["decisions"], []
+    route, down = moe.route, moe._down
+
+    def recorded_down(h, w):
+        out = down(h, w)
+        eouts.append(out)
+        return out
+
+    moe.route = lambda p, xg, cfg_: decisions
+    moe._down = recorded_down
+    try:
+        with use_rules(rules):
+            xd = distribute_tensor(x, mesh, placements(
+                rules.resolve("batch", "seq", "embed"), mesh))
+            split, _ = moe.moe_forward(shell.layers[0].ffn, xd, cfg)
+            split = split.full_tensor()
+        split_eout = eouts.pop()
+        one, _ = moe.moe_forward(layer0, x, cfg)
+        one_eout = eouts.pop()
+    finally:
+        moe.route, moe._down = route, down
+    E_l = split_eout.shape[1]
+    e0 = rank * E_l
+    scale = float(one_eout.abs().max().float())
+    bound = MOE_COMBINE_ROUNDINGS * 2.0 ** -24 * scale
+    err = float((split - one).abs().max())
+    out = {"experts": [e0, e0 + E_l],
+           "products_bitwise": bool(torch.equal(
+               split_eout, one_eout[:, e0:e0 + E_l])),
+           "products_max_abs_diff": float(
+               (split_eout.float() - one_eout[:, e0:e0 + E_l].float())
+               .abs().max()),
+           "layer_max_abs_err": err, "layer_bound": bound,
+           "max_abs_expert_out": scale}
+    expect(bool(torch.isfinite(split).all()), "11g MoE layer not finite")
+    expect(out["products_bitwise"], "11g a rank's expert products differ "
+           "from one rank's", out)
+    expect(err <= bound, "11g MoE layer differs from one rank's beyond "
+           "float32 rounding of the combine", out)
+    del x, split, one, split_eout, one_eout, eouts
+    return out
+
+
 def rank_expert_parallel(torch, rank: int, seed: int) -> dict:
     """11g: granite-moe-3b's prefill, 2 x 4096, under make_rules("prefill")
     on a (data 1, model 2) mesh: 20 of the 40 experts a rank (expert
@@ -3352,6 +3614,9 @@ def rank_expert_parallel(torch, rank: int, seed: int) -> dict:
                 tokens, mode="last_logits")[0].cpu())
         full = {k: v.detach().cpu() for k, v in model.state_dict().items()}
         del model
+        layer0 = nested({k.removeprefix("layers.0.ffn."): v.to(DEVICE)
+                         for k, v in full.items()
+                         if k.startswith("layers.0.ffn.")})
         placed, shell, out = place_shards(torch, cfg, full, mesh, rules,
                                           "11g")
         del full
@@ -3399,7 +3664,10 @@ def rank_expert_parallel(torch, rank: int, seed: int) -> dict:
             out["routing_same_input"] = same_input_route(
                 torch, got_route, placed["layers.0.ffn.router"].to_local(),
                 cfg)
-    del placed, shell, logits, want, cost, got_route, want_route
+        dist.barrier()
+        out["moe_layer"] = moe_layer_split(torch, cfg, mesh, rules, shell,
+                                           layer0, got_route, rank)
+    del placed, shell, logits, want, cost, got_route, want_route, layer0
     torch.cuda.empty_cache()
     return out
 
@@ -3873,7 +4141,7 @@ def main() -> int:
     ap.add_argument("--log-dir", default=None,
                     help="also write ptxas's reports and the kernel table "
                          "here")
-    ap.add_argument("--only", choices=["11g"], default=None,
+    ap.add_argument("--only", choices=["11g", "12"], default=None,
                     help="build the kernels and run this phase alone "
                          "(prints no result line)")
     args = ap.parse_args()
@@ -3914,6 +4182,12 @@ def main() -> int:
         phase_expert_parallel(torch, args.seed)
         phase_done("11g (expert parallelism)", clock)
         return 0
+    from repro_torch.examples.bf16_keys import lineitem_for_keys
+    if args.only == "12":
+        phase12(torch, np, lineitem_for_keys(
+            generate(args.sf, args.seed)["lineitem"]), args.log_dir, card)
+        phase_done("12 (bfloat16 keys, entry points)", clock)
+        return 0
 
     # 3. kernels
     rows = phase_kernels(torch)
@@ -3950,7 +4224,8 @@ def main() -> int:
     del slice_tables
     clock = phase_done("5b (partial aggregation, paper example)", clock)
 
-    # 6. the model stack
+    # 6. the model stack (phase 12 keeps lineitem's numeric columns)
+    bf16_lineitem = lineitem_for_keys(data["lineitem"])
     del data
     torch.cuda.empty_cache()
     model_rows = phase_model_kernels(torch, ptxas)
@@ -3986,6 +4261,12 @@ def main() -> int:
         torch, args.sf, args.seed, card)
     by_path.update(concurrent_launches)
     clock = phase_done("9 (concurrent runs)", clock)
+
+    # 12. bfloat16 keys at SF1, and the paper's entry points
+    by_path[BF16_PATH] = phase12(torch, np, bf16_lineitem, args.log_dir,
+                                 card)
+    del bf16_lineitem
+    clock = phase_done("12 (bfloat16 keys, entry points)", clock)
 
     # 10. the model families that reached the port last, and phi4-mini
     torch.cuda.empty_cache()

@@ -32,7 +32,10 @@ Shared NULL conventions (SQL semantics):
 - SUM/MIN/MAX/MEAN skip NULL values; a group whose values are all NULL
   aggregates to NULL. COUNT counts non-NULL values and is never NULL
   (an all-NULL group counts 0). A NaN *value* (valid lane) propagates
-  through MIN/MAX (numpy ``minimum``/``maximum`` semantics).
+  through MIN/MAX (numpy ``minimum``/``maximum`` semantics);
+- a bfloat16 key compares as its float32 value does
+  (:func:`comparison_form`): ``±0.0`` join and group together, each NaN
+  is unmatchable and its own group, as ``repro``'s ``reference`` gives.
 """
 from __future__ import annotations
 
@@ -43,8 +46,7 @@ import numpy as np
 from repro_torch.data import bfloat16
 
 __all__ = ["Columns", "Backend", "fill_value", "payload_validity",
-           "refuse_bfloat16_keys",
-           "AGG_FNS", "AggSpec", "normalize_agg_specs"]
+           "comparison_form", "AGG_FNS", "AggSpec", "normalize_agg_specs"]
 
 # {column name: (values, validity-or-None)} — insertion order is column
 # order. `valid is None` means "no NULLs" (the Table-layer convention).
@@ -95,7 +97,6 @@ def normalize_agg_specs(cols: Columns, keys: Sequence[str],
     Checks fn vocabulary, value-column existence, and output-name
     collisions (against the group keys and between specs). Returns the
     specs as a plain tuple so backends can hash/iterate it freely."""
-    refuse_bfloat16_keys((cols,), keys, "GROUP BY")
     out: list[AggSpec] = []
     seen: set[str] = set(keys)
     for spec in specs:
@@ -116,17 +117,16 @@ def normalize_agg_specs(cols: Columns, keys: Sequence[str],
     return tuple(out)
 
 
-def refuse_bfloat16_keys(sides: Sequence[Columns], keys: Sequence[str],
-                         op: str) -> None:
-    """A bfloat16 key column raises: the backends compare keys by their
-    payload, and bfloat16 bits do not compare as the values do (``±0.0``
-    differ, NaNs are equal). bfloat16 *value* columns are supported."""
-    for cols in sides:
-        for k in keys:
-            if k in cols and bfloat16.is_bfloat16(cols[k][0].dtype):
-                raise TypeError(
-                    f"{op} on bfloat16 key column {k!r} is not supported "
-                    f"by the port; cast the key first")
+def comparison_form(values: np.ndarray) -> np.ndarray:
+    """A key column as its keys compare: a bfloat16 column widened to
+    float32 (exact, so ``±0.0`` are equal and a NaN equals nothing, as
+    ``ml_dtypes`` scalars compare), any other column as it is. Every
+    site that codes, hashes or matches keys reads this form; output key
+    columns keep the input's own values (a group's key is its first
+    row's bits, a join emits its sides' own key columns)."""
+    if bfloat16.is_bfloat16(values.dtype):
+        return bfloat16.widen(values)
+    return values
 
 
 class Backend:

@@ -17,10 +17,12 @@ The join:
    to ``key - min`` when the span fits int32. int64 keys whose span is
    wider stay int64 on the card ("hash" mode): torch has native 64-bit
    integers, so nothing degrades for lack of an x64 flag. Everything
-   else (multi-column, object, cross-kind keys, unsigned keys past the
-   int64 range) goes through the joint factorization
-   (``vectorized._join_codes``) to dense codes. Unmatchable rows (NULL
-   and NaN keys) are coded to the dtype's max, the sentinel.
+   else (multi-column, object, cross-kind and bfloat16 keys, unsigned
+   keys past the int64 range) goes through the joint factorization
+   (``vectorized._join_codes``, bfloat16 in its float32 form) to dense
+   int32 codes, which the probe kernels take as any other slot code.
+   Unmatchable rows (NULL and NaN keys) are coded to the dtype's max,
+   the sentinel.
 2. **Partition** (host). ``partitions`` key ranges (a mixing hash in
    hash mode); each range gets the rows of every source chunk in row
    order, laid out owner-major, as the sharded backend's ``all_to_all``
@@ -66,7 +68,7 @@ import torch
 
 from repro_torch.exec.base import (AggSpec, Columns, _column_length,
                                    fill_value, normalize_agg_specs,
-                                   payload_validity, refuse_bfloat16_keys)
+                                   payload_validity)
 from repro_torch.exec.torch_backend import TorchBackend, resolve_device
 from repro_torch.exec.vectorized import (VectorizedBackend, _and_key_validity,
                                          _join_codes, dense_span_affordable)
@@ -205,7 +207,6 @@ class PartitionedBackend(TorchBackend):
     def _partitioned_join(self, left: Columns, right: Columns,
                           on: Sequence[str], how: str,
                           probe_mask: "np.ndarray | None") -> Columns:
-        refuse_bfloat16_keys((left, right), on, "join")
         n_left = _column_length(left)
         n_right = _column_length(right)
         ndev = self.partitions

@@ -13,7 +13,10 @@ Because keys are compared with Python dict/tuple equality, the oracle
 pins down the edge semantics the vectorized backends must reproduce:
 ``NULL`` (mask or ``None`` payload) matches nothing in joins; NaN keys
 match nothing (``NaN != NaN``); GROUP BY collapses all NULL keys into
-one group while each NaN key stays its own group.
+one group while each NaN key stays its own group. A bfloat16 key is
+compared in its float32 form (``comparison_form``), as ``repro``
+compares ``ml_dtypes`` scalars: ``±0.0`` are one key, and a group's key
+is its first row's bits.
 """
 from __future__ import annotations
 
@@ -23,8 +26,8 @@ import numpy as np
 
 from repro_torch.data import bfloat16
 from repro_torch.exec.base import (AggSpec, Backend, Columns, _column_length,
-                             fill_value, normalize_agg_specs,
-                             payload_validity, refuse_bfloat16_keys)
+                             comparison_form, fill_value,
+                             normalize_agg_specs, payload_validity)
 
 __all__ = ["ReferenceBackend"]
 
@@ -43,12 +46,11 @@ class ReferenceBackend(Backend):
         # not true). Inner: null-keyed rows are dropped from both sides;
         # left: null-keyed/unmatched left rows survive with NULL right
         # columns.
-        refuse_bfloat16_keys((left, right), on, "join")
         lok = self._key_validity(left, on)
         rok = self._key_validity(right, on)
-        lkeys = list(zip(*(left[k][0] for k in on)))
+        lkeys = list(zip(*(comparison_form(left[k][0]) for k in on)))
         rindex: dict[tuple, list[int]] = {}
-        rkeys = list(zip(*(right[k][0] for k in on)))
+        rkeys = list(zip(*(comparison_form(right[k][0]) for k in on)))
         for i, k in enumerate(rkeys):
             if rok[i]:
                 rindex.setdefault(k, []).append(i)
@@ -113,30 +115,32 @@ class ReferenceBackend(Backend):
         # unchanged.
         specs = normalize_agg_specs(cols, keys, specs)
         n = _column_length(cols)
-        kcols = [cols[k][0] for k in keys]
+        kcols = [comparison_form(cols[k][0]) for k in keys]
         kvalid = [self._validity(cols[k]) for k in keys]
         groups: dict[tuple, int] = {}
-        order: list[tuple] = []
+        first: list[int] = []           # each group's first row
         gid = np.empty(n, dtype=np.int64)
         for i in range(n):
             k = tuple(c[i] if kvalid[j][i] and c[i] is not None else _NULL
                       for j, c in enumerate(kcols))
             slot = groups.get(k)
             if slot is None:
-                slot = len(order)
+                slot = len(first)
                 groups[k] = slot
-                order.append(k)
+                first.append(i)
             gid[i] = slot
+        rows = np.array(first, dtype=np.int64)
         data: dict[str, tuple[np.ndarray, np.ndarray | None]] = {}
-        for j, kname in enumerate(keys):
-            dt = kcols[j].dtype
-            fill = fill_value(dt)
-            colvals = np.array([fill if k[j] is _NULL else k[j]
-                                for k in order], dtype=dt)
-            mask = np.array([k[j] is not _NULL for k in order], dtype=bool)
+        for kname in keys:
+            # the first row's own key (its bfloat16 bits, not the
+            # comparison form); a NULL key carries the canonical fill
+            values, valid = cols[kname]
+            mask = payload_validity(values, valid)[rows]
+            colvals = values[rows]
+            colvals[~mask] = fill_value(values.dtype)
             data[kname] = (colvals, mask)
         for fn, value, out in specs:
-            data[out] = self._agg_one(fn, cols[value], gid, len(order))
+            data[out] = self._agg_one(fn, cols[value], gid, len(first))
         return data
 
     @staticmethod

@@ -25,7 +25,8 @@ from typing import Sequence
 
 import numpy as np
 
-from repro_torch.exec.base import Columns, _column_length, payload_validity
+from repro_torch.exec.base import (Columns, _column_length, comparison_form,
+                                   payload_validity)
 
 __all__ = ["TableStats", "collect_stats"]
 
@@ -77,7 +78,9 @@ def _estimate_cardinality(values: np.ndarray, ok: np.ndarray) -> int:
         idx = idx[ok[idx]]
     if len(idx) == 0:
         return 0
-    sample = values[idx]
+    # a bfloat16 key counts as its float32 form (±0.0 one value, NaNs
+    # one, as for a float32 key), not by its bits
+    sample = comparison_form(values)[idx]
     if values.dtype == object:
         distinct = len({v for v in sample})
     else:

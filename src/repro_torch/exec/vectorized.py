@@ -32,6 +32,14 @@ key, two distinct ``nan`` objects are two).
 Object-dtype *value* columns cannot be summed by numpy ufuncs; the
 aggregation falls back to the reference row loop for exactly that
 column kind (group structure stays vectorized).
+
+bfloat16 keys are coded in their float32 form (``base.comparison_form``)
+at every coding site, so they follow the ``reference`` oracle: ``±0.0``
+are one key (a group shows its first row's zero), and every NaN key is
+unmatchable and its own group. Here the port deliberately differs from
+``repro``'s own ``vectorized`` backend, which codes the ``ml_dtypes``
+values as sorted and joins NaN keys to each other (ROADMAP R8) and
+splits a ``±0.0`` group (R12).
 """
 from __future__ import annotations
 
@@ -41,8 +49,8 @@ import numpy as np
 
 from repro_torch.data import bfloat16
 from repro_torch.exec.base import (AggSpec, Backend, Columns, _column_length,
-                             fill_value, normalize_agg_specs,
-                             payload_validity, refuse_bfloat16_keys)
+                             comparison_form, fill_value,
+                             normalize_agg_specs, payload_validity)
 
 __all__ = ["VectorizedBackend", "dense_span_affordable", "reduce_ident"]
 
@@ -89,7 +97,8 @@ def _factorize_object(values: np.ndarray, ok: np.ndarray,
 
 def _unmatchable(values: np.ndarray) -> np.ndarray | None:
     """Lanes whose payload can never compare equal to anything (NaN /
-    NaT) — non-object dtypes only."""
+    NaT) — non-object dtypes only, bfloat16 by its float32 form."""
+    values = comparison_form(values)
     if values.dtype.kind in "fc":
         return np.isnan(values)
     if values.dtype.kind in "mM":
@@ -108,6 +117,7 @@ def _join_codes(left: Columns, right: Columns,
         rv, rval = right[k]
         ok = np.concatenate([payload_validity(lv, lval),
                              payload_validity(rv, rval)])
+        lv, rv = comparison_form(lv), comparison_form(rv)
         if (lv.dtype == object or rv.dtype == object
                 or lv.dtype.kind != rv.dtype.kind):
             # object columns, and cross-kind keys (int64 vs float64,
@@ -159,6 +169,7 @@ def _group_codes(cols: Columns, keys: Sequence[str]) -> np.ndarray:
     for k in keys:
         values, valid = cols[k]
         ok = payload_validity(values, valid)
+        values = comparison_form(values)
         codes = np.full(n, -1, dtype=np.int64)
         if values.dtype == object:
             # dict factorization already keeps distinct NaN objects
@@ -247,7 +258,6 @@ class VectorizedBackend(Backend):
     # -- join -----------------------------------------------------------
     def hash_join(self, left: Columns, right: Columns,
                   on: Sequence[str], how: str = "inner") -> Columns:
-        refuse_bfloat16_keys((left, right), on, "join")
         fast = self._single_key_probe(left, right, on)
         if fast is not None:
             n_left, starts, counts, ridx = fast
@@ -366,6 +376,7 @@ class VectorizedBackend(Backend):
         rv, rval = right[on[0]]
         if lv.dtype == object or rv.dtype == object:
             return None
+        lv, rv = comparison_form(lv), comparison_form(rv)
         if lv.dtype.kind != rv.dtype.kind:
             # cross-kind equality (int vs float keys) is defined by
             # Python numeric comparison; leave it to the codes path.
@@ -462,6 +473,7 @@ class VectorizedBackend(Backend):
         # ARE the groups — skip the whole factorization pass.
         if len(keys) == 1:
             kv, kvalid = cols[keys[0]]
+            kv = comparison_form(kv)
             if (kv.dtype != object and kv.dtype.kind in "iub"
                     and kvalid is None):
                 return _group_runs(kv)

@@ -263,16 +263,50 @@ def test_device_backends_route_bf16_to_the_host():
         assert_same(pt.group_by(["g"]).agg(*specs, backend=be), want)
 
 
+@pytest.mark.parametrize("backend", ["reference", "vectorized",
+                                     "torch_auto"])
 @pytest.mark.parametrize("op", ["group_by", "join"])
-def test_bf16_key_columns_raise(op):
-    pt, _ = _tables(n=50)
-    for backend in ("reference", "vectorized",
-                    TorchAutoBackend(device="cpu")):
-        with pytest.raises(TypeError, match="bfloat16 key column"):
-            if op == "group_by":
-                pt.group_by(["x"]).agg(("count", "g"), backend=backend)
-            else:
-                pt.join(pt, on=["x"], backend=backend)
+def test_bf16_key_columns_match_reference(op, backend):
+    """A bfloat16 column as a key: grouped and self-joined as ``repro``'s
+    ``reference`` does, bit for bit (``test_torch_bf16_keys.py`` holds
+    every backend on more inputs)."""
+    pt, jt = _tables(n=50)
+    be = TorchAutoBackend(device="cpu") if backend == "torch_auto" \
+        else backend
+    with np.errstate(all="ignore"):
+        if op == "group_by":
+            want = jt.group_by(["x"]).agg(("count", "g"),
+                                          backend="reference")
+            got = pt.group_by(["x"]).agg(("count", "g"), backend=be)
+        else:
+            want = jt.join(jt.select([jcol("x"), jcol("g").alias("h")]),
+                           on=["x"], backend="reference")
+            got = pt.join(pt.select([col("x"), col("g").alias("h")]),
+                          on=["x"], backend=be)
+    assert_same(got, want)
+
+
+def test_repro_vectorized_splits_a_signed_zero_group():
+    """R12: ``repro``'s ``vectorized`` and ``jax`` backends code bfloat16
+    keys by their sorted ``ml_dtypes`` values, so the ±0.0 rows of eight
+    split into two groups and the self-join gives 42 rows, where
+    ``reference`` (and every port backend) gives one group and 14 rows.
+    If ``repro`` is ever fixed, this test says so."""
+    keys = np.array([1, 2, 1, -0.0, 0.0, np.nan, np.nan, -0.0],
+                    dtype=np.float32)
+    v = np.arange(8, dtype=np.int32)
+    jt = JTable({"k": keys.astype(BF), "v": v})
+    pt = Table({"k": bfloat16.from_float32(keys), "v": v})
+    for backend in ("vectorized", "jax"):
+        got = jt.group_by(["k"]).agg(("sum", "v"), backend=backend)
+        assert got.column("v_sum").tolist() == [2, 1, 7, 5, 6, 7], backend
+        assert len(jt.join(jt, on=["k"], backend=backend)) == 42, backend
+    want = jt.group_by(["k"]).agg(("sum", "v"), backend="reference")
+    assert want.column("v_sum").tolist() == [2, 1, 14, 5, 6]
+    assert len(jt.join(jt, on=["k"], backend="reference")) == 14
+    assert_same(pt.group_by(["k"]).agg(("sum", "v"), backend="vectorized"),
+                want)
+    assert len(pt.join(pt, on=["k"], backend="vectorized")) == 14
 
 
 def test_sql_refuses_a_bf16_column_as_repro_does():

@@ -56,7 +56,13 @@ def test_the_scan_sees_the_package():
             "repro_torch.training.train_loop", "repro_torch.kernels.autograd",
             "repro_torch.distributed", "repro_torch.distributed.fault_tolerance",
             "repro_torch.launch.train",
-            "repro_torch.examples.transactional_training"} <= set(MODULES)
+            "repro_torch.examples.transactional_training",
+            "repro_torch.examples.bf16_keys", "repro_torch.examples.entry",
+            *(f"repro_torch.examples.{name}" for name in (
+                "quickstart", "agent_branch_workflow", "incremental_reruns",
+                "optimized_pipeline", "sql_queries", "traced_run",
+                "concurrent_writers", "agent_swarm",
+                "serve_pinned_commit"))} <= set(MODULES)
 
 
 @pytest.mark.parametrize("path", FILES,
