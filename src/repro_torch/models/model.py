@@ -31,6 +31,16 @@ Entry points, as in ``repro``:
 - :meth:`Model.init_cache` and :meth:`Model.decode_step` are one token
   against per-layer caches.
 
+Under ``obs.tracing()`` the stack records spans (DESIGN.md §14):
+``model.forward`` and ``model.decode_step`` around the entry points,
+``model.head`` around the LM head, ``attn.prefill``/``attn.decode``
+around each block's attention, and ``models/moe.py``'s ``moe.route``,
+``moe.dispatch``, ``moe.experts`` and ``moe.combine``. Each is opened at
+the call site, so the module attributes called inside stay looked up at
+each call; with the profiler on, each is also a profiler range. With
+tracing off a span costs one ``get_recorder()`` and the shared no-op
+context, and launches nothing.
+
 A call builds an autograd graph when grad mode is on, as any module's
 does: the serving callers (``ServeLoop``, ``launch/serve.py``) run under
 ``torch.no_grad()``, the training loop (``training/train_loop.py``) does
@@ -50,6 +60,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import xlstm as X
+from repro_torch.obs import get_recorder
 
 __all__ = ["Block", "EncoderLayer", "Model", "unsupported", "REMAT"]
 
@@ -116,15 +127,20 @@ class Block(nn.Module):
         h = L.rmsnorm(self.norm1, x, cfg.norm_eps)
         new_cache = None
         if self.kind in _ATTN:
+            span = get_recorder().span
             if decode:
-                mixed, attn = L.attention_decode(self.mix, h, cache["attn"],
-                                                 cfg, kind=self.kind)
+                with span("attn.decode"):
+                    mixed, attn = L.attention_decode(
+                        self.mix, h, cache["attn"], cfg, kind=self.kind)
                 new_cache = dict(cache, attn=attn)
             elif collect_kv:
-                mixed, new_cache = L.attention_forward(
-                    self.mix, h, cfg, kind=self.kind, return_kv=True)
+                with span("attn.prefill"):
+                    mixed, new_cache = L.attention_forward(
+                        self.mix, h, cfg, kind=self.kind, return_kv=True)
             else:
-                mixed = L.attention_forward(self.mix, h, cfg, kind=self.kind)
+                with span("attn.prefill"):
+                    mixed = L.attention_forward(self.mix, h, cfg,
+                                                kind=self.kind)
         else:
             forward = _RECURRENT[self.kind][1]
             mixed, st = forward(self.mix, h, cfg,
@@ -274,41 +290,48 @@ class Model(L.ParamModule):
             raise ValueError(f"unknown mode {mode!r}")
         if remat not in REMAT:
             raise ValueError(f"unknown remat {remat!r}; one of {REMAT}")
-        x = self._embed(tokens)
-        if vision_embeds is not None:           # VLM early fusion
-            n_patch = vision_embeds.shape[1]
-            x = torch.cat([vision_embeds.to(x.dtype), x[:, n_patch:]], dim=1)
-        x = lshard(x, "batch", "seq", "embed")
-        enc_out = None
-        if self.cfg.encoder_layers:
-            if audio_embeds is None:
-                raise ValueError(f"{self.cfg.name} encodes audio: pass "
-                                 f"audio_embeds")
-            enc_out = self.encode(audio_embeds)
-        kvs, auxs = [], []
-        P = self.cfg.pattern_len
-        n_scan = self.cfg.n_scan_blocks * P
-        for lo in range(0, n_scan, P):
+        rec = get_recorder()
+        with rec.span("model.forward") as sp:
+            if rec.enabled:
+                sp.set(batch=tokens.shape[0], seq=tokens.shape[1], mode=mode)
+            x = self._embed(tokens)
+            if vision_embeds is not None:           # VLM early fusion
+                n_patch = vision_embeds.shape[1]
+                x = torch.cat([vision_embeds.to(x.dtype), x[:, n_patch:]],
+                              dim=1)
             x = lshard(x, "batch", "seq", "embed")
-            x, kv, aux = self._superblock(self.layers[lo:lo + P], x, enc_out,
-                                          return_kv, remat)
-            kvs += kv
-            if aux is not None:
-                auxs.append(aux)
-        # repro's order: the super-blocks' sum, then each tail layer's
-        aux = torch.stack(auxs).sum() if auxs else torch.zeros(
-            (), dtype=torch.float32, device=x.device)
-        for layer in self.layers[n_scan:]:
-            x, kv, a = layer(x, enc_out=enc_out, collect_kv=return_kv)
-            kvs.append(kv)
-            aux = aux if a is None else aux + a
-        x = L.rmsnorm(self.final_norm, x, self.cfg.norm_eps)
-        if mode == "hidden":
-            out = x
-        else:
-            out = lshard(self._logits(x[:, -1:] if mode == "last_logits"
-                                      else x), "batch", None, "vocab")
-        return (out, aux, kvs) if return_kv else (out, aux)
+            enc_out = None
+            if self.cfg.encoder_layers:
+                if audio_embeds is None:
+                    raise ValueError(f"{self.cfg.name} encodes audio: pass "
+                                     f"audio_embeds")
+                enc_out = self.encode(audio_embeds)
+            kvs, auxs = [], []
+            P = self.cfg.pattern_len
+            n_scan = self.cfg.n_scan_blocks * P
+            for lo in range(0, n_scan, P):
+                x = lshard(x, "batch", "seq", "embed")
+                x, kv, aux = self._superblock(self.layers[lo:lo + P], x,
+                                              enc_out, return_kv, remat)
+                kvs += kv
+                if aux is not None:
+                    auxs.append(aux)
+            # repro's order: the super-blocks' sum, then each tail layer's
+            aux = torch.stack(auxs).sum() if auxs else torch.zeros(
+                (), dtype=torch.float32, device=x.device)
+            for layer in self.layers[n_scan:]:
+                x, kv, a = layer(x, enc_out=enc_out, collect_kv=return_kv)
+                kvs.append(kv)
+                aux = aux if a is None else aux + a
+            x = L.rmsnorm(self.final_norm, x, self.cfg.norm_eps)
+            if mode == "hidden":
+                out = x
+            else:
+                with rec.span("model.head"):
+                    out = lshard(self._logits(
+                        x[:, -1:] if mode == "last_logits" else x),
+                        "batch", None, "vocab")
+            return (out, aux, kvs) if return_kv else (out, aux)
 
     @staticmethod
     def _superblock(layers, x, enc_out, collect_kv: bool,
@@ -362,10 +385,17 @@ class Model(L.ParamModule):
     def decode_step(self, tokens: torch.Tensor, caches: list[dict]):
         """One decode step. tokens: (B, 1) -> (logits (B, 1, V) float32,
         new caches). KV caches are updated in place."""
-        x = self._embed(tokens)
-        new = []
-        for layer, cache in zip(self.layers, caches):
-            x, c, _ = layer(x, cache=cache, decode=True)
-            new.append(c)
-        x = L.rmsnorm(self.final_norm, x, self.cfg.norm_eps)
-        return lshard(self._logits(x), "batch", None, "vocab"), new
+        rec = get_recorder()
+        with rec.span("model.decode_step") as sp:
+            if rec.enabled:
+                sp.set(batch=tokens.shape[0], cache_len=next(
+                    (c["attn"]["len"] for c in caches if "attn" in c), None))
+            x = self._embed(tokens)
+            new = []
+            for layer, cache in zip(self.layers, caches):
+                x, c, _ = layer(x, cache=cache, decode=True)
+                new.append(c)
+            x = L.rmsnorm(self.final_norm, x, self.cfg.norm_eps)
+            with rec.span("model.head"):
+                logits = lshard(self._logits(x), "batch", None, "vocab")
+        return logits, new

@@ -8,14 +8,31 @@ See DESIGN.md §14. Public surface:
 - :class:`TraceRecorder` / :class:`NullRecorder` / :class:`Span` — the
   recorder protocol.
 - :class:`MetricsRegistry` — counters/histograms fed by the same
-  instrumentation sites.
+  instrumentation sites, and device tallies (``MetricsRegistry.tally``)
+  counted on the card without a sync.
 - ``manifest`` helpers — commit-anchored run manifests
   (``Catalog.run_manifest`` reads these back).
 - ``export`` helpers — JSON and Chrome trace-event (Perfetto) output.
+- ``device_time`` — device time by a CUDA source's kernels
+  (``device_ms``) and by span (``span_times``).
+
+The model stack records spans too: ``model.forward`` /
+``model.decode_step``, ``model.head``, ``attn.prefill`` /
+``attn.decode``, ``moe.route`` / ``moe.dispatch`` / ``moe.experts`` /
+``moe.combine``, with the tally ``moe.pairs_kept`` and the counter
+``moe.slots``. While ``torch.profiler`` is on, every ``span()`` of a
+:class:`TraceRecorder` is also a profiler range of its name, so
+``torch.profiler`` around ``with tracing():`` gives one Chrome trace
+(``prof.export_chrome_trace``) with the program's layers over the
+device's kernels, and ``span_times`` the device and idle time of each
+layer.
 
 Invariant (test-gated): nothing in this package is consulted by
 ``engine.cache_key`` or any backend ``cache_token`` — tracing observes
 execution, it never changes what executes or what a result hashes to.
+Nor does it change a model's numbers: logits, K/V and caches are bitwise
+the same with tracing on and off, and with it off the model stack opens
+no range and launches nothing.
 """
 from repro_torch.obs.export import (
     to_chrome_trace,

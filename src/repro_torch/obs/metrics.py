@@ -10,6 +10,11 @@ into run manifests and BENCH documents.
 A :class:`Histogram` keeps O(1) state (count/sum/min/max), not samples:
 manifests must stay small no matter how many nodes a run executes.
 
+A :class:`Tally` counts on the card: a 0-d int64 tensor on the device
+of what it is handed, added to in place, so counting what a kernel
+decided (the MoE's kept pairs) costs no sync. :meth:`MetricsRegistry.
+snapshot` reads each tally once, among the counters.
+
 ``NULL_METRICS`` is the disabled path — a registry whose instruments
 drop every update with no allocation, shared by every NullRecorder.
 """
@@ -18,7 +23,10 @@ from __future__ import annotations
 import threading
 from typing import Any
 
-__all__ = ["Counter", "Histogram", "MetricsRegistry", "NULL_METRICS"]
+import torch
+
+__all__ = ["Counter", "Histogram", "Tally", "MetricsRegistry",
+           "NULL_METRICS"]
 
 
 class Counter:
@@ -31,6 +39,24 @@ class Counter:
     def inc(self, n: int = 1) -> None:
         with self._lock:
             self.value += n
+
+
+class Tally:
+    """A count kept on the card: ``add(x)`` adds an integer tensor ``x``
+    (0-d) in place, with no sync; ``value`` is the tensor, or None
+    before the first ``add``."""
+
+    __slots__ = ("_lock", "value")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.value = None
+
+    def add(self, x) -> None:
+        with self._lock:
+            if self.value is None:
+                self.value = x.new_zeros((), dtype=torch.int64)
+            self.value.add_(x)
 
 
 class Histogram:
@@ -72,6 +98,14 @@ class _NullCounter:
         pass
 
 
+class _NullTally:
+    __slots__ = ()
+    value = None
+
+    def add(self, x) -> None:
+        pass
+
+
 class _NullHistogram:
     __slots__ = ()
     count, sum, min, max, mean = 0, 0.0, None, None, 0.0
@@ -86,6 +120,7 @@ class _NullHistogram:
 
 _NULL_COUNTER = _NullCounter()
 _NULL_HISTOGRAM = _NullHistogram()
+_NULL_TALLY = _NullTally()
 
 
 class MetricsRegistry:
@@ -96,6 +131,7 @@ class MetricsRegistry:
         self._lock = threading.Lock()
         self._counters: dict[str, Counter] = {}
         self._histograms: dict[str, Histogram] = {}
+        self._tallies: dict[str, Tally] = {}
 
     def counter(self, name: str) -> Counter:
         if self._null:
@@ -115,12 +151,26 @@ class MetricsRegistry:
                 h = self._histograms[name] = Histogram()
             return h
 
+    def tally(self, name: str) -> Tally:
+        if self._null:
+            return _NULL_TALLY            # type: ignore[return-value]
+        with self._lock:
+            t = self._tallies.get(name)
+            if t is None:
+                t = self._tallies[name] = Tally()
+            return t
+
     def snapshot(self) -> dict[str, Any]:
         """JSON-serializable state: {"counters": {...}, "histograms":
-        {...}} plus derived rates the manifests/benchmarks read."""
+        {...}} plus derived rates the manifests/benchmarks read. The
+        tallies are among the counters, each read from the card here
+        (one sync)."""
         with self._lock:
             counters = {n: c.value for n, c in self._counters.items()}
+            tallies = {n: t.value for n, t in self._tallies.items()
+                       if t.value is not None}
             hists = {n: h.to_dict() for n, h in self._histograms.items()}
+        counters.update((n, int(v)) for n, v in tallies.items())
         out: dict[str, Any] = {"counters": counters, "histograms": hists}
         hits = counters.get("engine.cache.hits", 0)
         misses = counters.get("engine.cache.misses", 0)

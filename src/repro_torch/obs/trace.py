@@ -28,6 +28,16 @@ Two recorders implement one protocol:
   starts with an empty context, so runs never adopt each other's
   spans).
 
+**The profiler bridge.** While a :class:`TraceRecorder` is installed
+and ``torch.profiler`` (the autograd profiler) is on, each ``span()``
+also opens ``torch.profiler.record_function(<span name>)`` for its
+scope, so the span is a range on the profiler's host timeline and the
+device operations launched inside it can be attributed to it
+(``obs.device_time.span_times``). Span times stay on ``time.time()``,
+the base of the profiler's events, so the two clocks agree. The
+begin/commit pairs of ``start_span``/``end_span``, split across calls,
+are not bridged. A :class:`NullRecorder` opens nothing.
+
 **The cache-key non-interference invariant** (test-gated): nothing in
 this module is ever consulted by ``repro_torch.core.engine.cache_key`` or by
 any backend ``cache_token`` — tracing on/off, or two different
@@ -41,6 +51,8 @@ import itertools
 import threading
 import time
 from typing import Any
+
+import torch
 
 from repro_torch.obs.metrics import NULL_METRICS, MetricsRegistry
 
@@ -154,22 +166,30 @@ _current: contextvars.ContextVar["Span | None"] = contextvars.ContextVar(
 
 
 class _SpanCtx:
-    """Context manager pairing one Span with the ambient-parent var."""
+    """Context manager pairing one Span with the ambient-parent var and,
+    while the autograd profiler is on, with a profiler range of the
+    span's name."""
 
-    __slots__ = ("recorder", "span", "_token")
+    __slots__ = ("recorder", "span", "_token", "_range")
 
     def __init__(self, recorder: "TraceRecorder", span: Span):
         self.recorder = recorder
         self.span = span
         self._token: contextvars.Token | None = None
+        self._range = None
 
     def __enter__(self) -> Span:
         self._token = _current.set(self.span)
+        if torch.autograd._profiler_enabled():
+            self._range = torch.profiler.record_function(self.span.name)
+            self._range.__enter__()
         return self.span
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         if exc_type is not None:
             self.span.attrs.setdefault("error", repr(exc))
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
         _current.reset(self._token)
         self.recorder._finish(self.span)
         return False
