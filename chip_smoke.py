@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--sf 1] [--seed 0] [--log-dir DIR] [--only 11g|12]
+    python3 chip_smoke.py [--sf 1] [--seed 0] [--log-dir DIR] [--only 11g|12|13]
 
 Phases, each of which must pass (any failure raises and exits non-zero
 before the result line):
@@ -101,14 +101,16 @@ before the result line):
       tokens/s and peak memory;
    e. ``ServeLoop`` at the full config with the launcher's defaults (8
       requests, 4 slots, prompts of 4-12 tokens, 16 new tokens): decode
-      step ms and tokens/s;
-   d. the kernel path against the kernel-free path at full size: one
+      step ms and tokens/s, and one decode attention call a step and
+      attention block;
+   d. the prefill path against the decode path at full size: one
       prompt of 2304 tokens (the 2048-slot ring buffer wraps), prefill
       ``last_logits`` against 2304 teacher-forced ``decode_step``s, and
       the prefill's K/V of the last 2048 positions against the decode
       ring cache (float32 activations over the same weights; the
       tolerances are ``PREFILL_DECODE_LOGITS_RTOL`` and
-      ``PREFILL_DECODE_KV_RTOL``);
+      ``PREFILL_DECODE_KV_RTOL``); the decode's attention launches
+      counted apart from the prefill's;
 7. xlstm-350m (arXiv:2405.04517 as ``repro_torch/configs/xlstm_350m.py``
    configures it: 24 layers, (mlstm, slstm) x 12, d_model 1024, 4 heads,
    head dim 256, vocab 50,304 tied):
@@ -127,7 +129,7 @@ before the result line):
       peak memory and the device profile;
    d. one prompt of ``XLSTM_LONG_PROMPT`` tokens, prefill ``last_logits``
       (the kernel path) against as many teacher-forced ``decode_step``s
-      (kernel-free), float32 activations over the same weights: argmax
+      (no kernel), float32 activations over the same weights: argmax
       equal, logits within ``XLSTM_PREFILL_DECODE_RTOL``;
    e. ``ServeLoop`` with the launcher's defaults: decode step ms;
    phases 6 and 7 serve under ``torch.no_grad()``, so they build no
@@ -307,7 +309,20 @@ before the result line):
       (``ENTRY_POINTS``) through its ``main(device="cuda")``, each
       asserting what its root ``examples/*.py`` asserts; their printed
       lines go to ``--log-dir``. Run alone with ``--only 12`` (after the
-      build and the data; no result line).
+      build and the data; no result line);
+13. (after 10, before 11) decode attention over a ring KV cache: the
+    three kernels of ``kernels/decode_attention`` against their plain
+    version (``ref.py``, the decode core they replace) at the phi4-mini
+    decode cell's shape (96 sessions, 8 kv heads of 3 query heads, hd
+    128, a 4096-slot ring, 2048 and 4096 live slots), at granite's hd 64
+    and at recurrentgemma's hd 256 with a local window of 2048 in a
+    4096-slot ring: the error within the test's first bound
+    (``tests/test_decode_attention_kernel.py``) and below a control's
+    (the plain version without the bfloat16 rounding of p), times of the
+    wrapper, the kernels alone and the plain version, the kernels'
+    device time, the launches, and the bound (live K and V, the scores
+    written, the output, at the card's memory rate). Run alone with
+    ``--only 13`` (after the build; no result line).
 
 The last two lines of standard output are one JSON object of the
 kernels' numbers, then ``{"ok": true, "device": {...}}``.
@@ -352,6 +367,8 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:86",
     "rglru_scan": "src/repro/kernels/rglru/kernel.py:52",
     "mlstm_chunkwise": "src/repro/kernels/mlstm/kernel.py:83",
+    "decode_attention": ("none: repro's decode attention is plain jnp "
+                         "(src/repro/models/layers.py attention_decode)"),
 }
 SOURCES = {
     "masked_segment_sum":
@@ -366,6 +383,8 @@ SOURCES = {
     "rglru_scan": "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
     "mlstm_chunkwise":
         "src/repro_torch/kernels/mlstm/csrc/mlstm_chunkwise.cu",
+    "decode_attention":
+        "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
 }
 Q18_JOIN_LANES = 1_500_000      # Q18's outer join probes one lane per order
 ARCH = "recurrentgemma_9b"
@@ -1399,13 +1418,22 @@ def phase_partial(torch, np, data, slice_tables):
 # ---------------------------------------------------------------------------
 
 def model_wrappers():
-    """The model path's three kernel wrappers, by kernel name."""
+    """The model path's four kernel wrappers, by kernel name."""
+    from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.mlstm import ops as mops
     from repro_torch.kernels.rglru import ops as rops
     return {"flash_attention": fops.flash_attention,
             "rglru_scan": rops.rglru_scan,
-            "mlstm_chunkwise": mops.mlstm}
+            "mlstm_chunkwise": mops.mlstm,
+            "decode_attention": dops.decode_attention}
+
+
+def attn_layers(cfg) -> int:
+    """The attention blocks of ``cfg``: one decode attention call each a
+    decode step."""
+    return sum(cfg.block_pattern[i % cfg.pattern_len] in ("attn", "local")
+               for i in range(cfg.num_layers))
 
 
 def reset_model_launches() -> None:
@@ -1617,6 +1645,13 @@ def phase_launcher(torch, arch: str = ARCH) -> dict:
     torch.cuda.synchronize()
     launches = read_model_launches()
     expect(rc == 0, "the launcher returned", rc)
+    from repro_torch.configs import get_smoke_config
+    attn = attn_layers(get_smoke_config(arch))
+    expect(launches["flash_attention"] == 0, "launcher: decode launched "
+           "flash", launches)
+    expect(launches["decode_attention"] % max(attn, 1) == 0
+           and (launches["decode_attention"] > 0) == (attn > 0),
+           "launcher: decode attention launches", attn, launches)
     log(f"launcher {arch}: rc={rc} wall_s={time.perf_counter() - t0:.3f} "
         f"launches {json.dumps(launches)}")
     return launches
@@ -1656,7 +1691,8 @@ def forward_launches(model) -> dict:
     return {"flash_attention": attn * (2 if cfg.encoder_layers else 1)
             + cfg.encoder_layers,
             "rglru_scan": kinds.count("rglru"),
-            "mlstm_chunkwise": kinds.count("mlstm")}
+            "mlstm_chunkwise": kinds.count("mlstm"),
+            "decode_attention": 0}
 
 
 def phase_prefill(torch, cfg, model, seed: int, want: dict,
@@ -1783,6 +1819,10 @@ def phase_serve_loop(torch, np, cfg, model, seed: int,
         steps += 1
     wall = time.perf_counter() - t0
     launches = read_model_launches()
+    # every step, the untimed first too, is one decode step
+    expect(launches["flash_attention"] == 0 and launches["decode_attention"]
+           == (steps + 1) * attn_layers(cfg), label, "decode launches",
+           steps + 1, launches)
     expect(all(r.done and len(r.out) == 16 for r in reqs),
            "not every request finished with 16 tokens")
     expect(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out),
@@ -1822,12 +1862,12 @@ def phase_prefill_vs_decode(torch, cfg, model, seed: int,
                             length: int = LONG_PROMPT,
                             rtol: float = PREFILL_DECODE_LOGITS_RTOL,
                             label: str = "prefill vs decode") -> dict:
-    """6d and 7d: the kernel path (prefill: flash + RG-LRU scan, or the
-    mLSTM kernel) against the kernel-free path (decode: one-token
-    softmax, one recurrence step) on one prompt of ``length`` tokens, in
-    float32 activations over the same weights (upcast once; bfloat16 to
-    float32 is exact). The prefill's K/V of an attention layer are held
-    against the decode's ring cache."""
+    """6d and 7d: the prefill path (flash + RG-LRU scan, or the mLSTM
+    kernel) against the decode path (the decode attention kernels over
+    the ring cache, one recurrence step) on one prompt of ``length``
+    tokens, in float32 activations over the same weights (upcast once;
+    bfloat16 to float32 is exact). The prefill's K/V of an attention
+    layer are held against the decode's ring cache."""
     import dataclasses
     from repro_torch.models.model import Model
     cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
@@ -1844,18 +1884,25 @@ def phase_prefill_vs_decode(torch, cfg, model, seed: int,
     prefill_s = time.perf_counter() - t0
     launches = read_model_launches()
     caches = m32.init_cache(1, length)
+    reset_model_launches()
     t0 = time.perf_counter()
     for t in range(length):
         logits, caches = m32.decode_step(tokens[:, t:t + 1], caches)
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
+    decode_launches = read_model_launches()
+    expect(decode_launches["flash_attention"] == 0
+           and decode_launches["decode_attention"]
+           == length * attn_layers(cfg), label, "decode launches",
+           decode_launches)
     V = cfg.vocab_size
     p, d = want_logits[0, 0, :V], logits[0, 0, :V]
     err = rel_err(torch, p, d)
     top2 = torch.topk(d, 2).values
     log(f"{label}: {length} tokens; prefill {prefill_s:.3f} s "
         f"(launches {json.dumps(launches)}), {length} decode steps "
-        f"{decode_s:.3f} s ({1e3 * decode_s / length:.2f} ms/step); "
+        f"{decode_s:.3f} s ({1e3 * decode_s / length:.2f} ms/step, "
+        f"launches {json.dumps(decode_launches)}); "
         f"argmax {int(p.argmax())} vs {int(d.argmax())}, top-2 margin "
         f"{float(top2[0] - top2[1]):.5f}; logits rel err {err:.3e}")
     expect(int(p.argmax()) == int(d.argmax()), "prefill and decode argmax "
@@ -1881,7 +1928,8 @@ def phase_prefill_vs_decode(torch, cfg, model, seed: int,
     del m32, caches, kvs
     return {"prefill_s": prefill_s, "decode_step_ms":
             1e3 * decode_s / length, "logits_rel_err": err,
-            "kv_rel_err": max(kv_errs, default=None), "launches": launches}
+            "kv_rel_err": max(kv_errs, default=None), "launches": launches,
+            "decode_launches": decode_launches}
 
 
 def phase_model(torch, np, seed: int) -> dict:
@@ -1891,7 +1939,7 @@ def phase_model(torch, np, seed: int) -> dict:
     cfg, model = full_model(torch, seed)
     out["prefill"] = phase_prefill(torch, cfg, model, seed, want={
         "flash_attention": 12, "rglru_scan": 26, "mlstm_chunkwise": 0,
-        "flash_wgmma": 12})
+        "decode_attention": 0, "flash_wgmma": 12})
     out["serve"] = phase_serve_loop(torch, np, cfg, model, seed)
     out["long"] = phase_prefill_vs_decode(torch, cfg, model, seed)
     del model
@@ -2056,7 +2104,7 @@ def phase_xlstm(torch, np, seed: int) -> dict:
     out["prefill"] = phase_prefill(
         torch, cfg, model, seed, want={
             "flash_attention": 0, "rglru_scan": 0, "mlstm_chunkwise": 12,
-            "flash_wgmma": 0},
+            "decode_attention": 0, "flash_wgmma": 0},
         batch=XLSTM_BATCH, length=XLSTM_LEN, label="xlstm prefill")
     out["long"] = phase_prefill_vs_decode(
         torch, cfg, model, seed, length=XLSTM_LONG_PROMPT,
@@ -2757,7 +2805,8 @@ def cache_from_prefill(torch, model, kvs, batch: int, max_len: int,
 def greedy_decode(torch, cfg, model, caches, logits, label: str,
                   steps: int = FAMILY_DECODE_STEPS) -> dict:
     """``steps`` greedy decode steps from a prefill's last logits; every
-    step's logits finite. Decode reaches no kernel."""
+    step's logits finite. Decode reaches no flash kernel, and the decode
+    attention kernels once a step and attention layer."""
     V = cfg.vocab_size
     nxt = logits[:, -1, :V].argmax(-1, keepdim=True)
     reset_model_launches()
@@ -2772,10 +2821,13 @@ def greedy_decode(torch, cfg, model, caches, logits, label: str,
     wall = time.perf_counter() - t0
     launches = read_model_launches()
     expect(launches["flash_attention"] == 0, label, "decode launched flash")
+    expect(launches["decode_attention"] == steps * attn_layers(cfg), label,
+           "decode attention launches", launches)
     first = torch.cat(toks, 1)[0].tolist()
     log(f"{label}: {steps} greedy steps in {wall:.3f} s = "
         f"{1e3 * wall / steps:.2f} ms/step; tokens of request 0 {first}")
-    return {"decode_step_ms": 1e3 * wall / steps, "tokens": first}
+    return {"decode_step_ms": 1e3 * wall / steps, "tokens": first,
+            "launches": launches}
 
 
 def family_prefill(torch, cfg, model, seed: int, want: dict, label: str,
@@ -2793,7 +2845,7 @@ def family_prefill(torch, cfg, model, seed: int, want: dict, label: str,
 
 def only_flash(n: int, wgmma: int) -> dict:
     return {"flash_attention": n, "rglru_scan": 0, "mlstm_chunkwise": 0,
-            "flash_wgmma": wgmma}
+            "decode_attention": 0, "flash_wgmma": wgmma}
 
 
 def summary(out: dict) -> dict:
@@ -2912,11 +2964,17 @@ def phi4_prefill_vs_decode(torch, cfg, model, seed: int) -> dict:
     _, _, kvs = m32(tokens[:, :PHI4_PROMPT], mode="last_logits",
                     return_kv=True)
     caches = cache_from_prefill(torch, m32, kvs, 1, total)
+    reset_model_launches()
     t0 = time.perf_counter()
     for t in range(PHI4_PROMPT, total):
         logits, caches = m32.decode_step(tokens[:, t:t + 1], caches)
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
+    decode_launches = read_model_launches()
+    expect(decode_launches["flash_attention"] == 0
+           and decode_launches["decode_attention"]
+           == PHI4_DECODE * attn_layers(cfg), "phi4 float32 decode launches",
+           decode_launches)
     V = cfg.vocab_size
     p, d = want[0, 0, :V], logits[0, 0, :V]
     err = rel_err(torch, p, d)
@@ -2936,7 +2994,8 @@ def phi4_prefill_vs_decode(torch, cfg, model, seed: int) -> dict:
     torch.cuda.empty_cache()
     return {"prefill_s": prefill_s, "decode_step_ms":
             1e3 * decode_s / PHI4_DECODE, "logits_rel_err": err,
-            "top2_margin": margin, "launches": launches}
+            "top2_margin": margin, "launches": launches,
+            "decode_launches": decode_launches}
 
 
 def phase_phi4(torch, seed: int) -> dict:
@@ -4068,6 +4127,96 @@ def phase11_paths(dist_out: dict) -> dict:
                     dist_out["restore"]["launches"]["mlstm_chunkwise"]}}
 
 
+# phase 13: at phi4-mini's decode cell (96 sessions, 24 heads over 8, hd
+# 128, a 4096-slot ring) with 2048 and 4096 live slots, at granite's hd
+# 64, and recurrentgemma's hd 256 (16 heads over 1) with its local window
+# of 2048 in a 4096-slot ring
+DECODE_MAIN = dict(B=96, K=8, g=3, hd=128, smax=4096, pos=2047, window=None)
+DECODE_CASES = [DECODE_MAIN, {**DECODE_MAIN, "pos": 4095},
+                dict(B=32, K=8, g=3, hd=64, smax=4096, pos=3071, window=None),
+                dict(B=4, K=1, g=16, hd=256, smax=4096, pos=3000,
+                     window=2048)]
+DECODE_FLIPS = 4                # tests/test_decode_attention_kernel.py
+
+
+def decode_case(torch, case: dict, g) -> dict:
+    """One decode attention case: the kernels against their plain
+    version, within the test's bound and below the control's error (the
+    plain version with p left in float32), and the times."""
+    import math
+    from repro_torch.kernels.decode_attention import kernel, ops, ref
+    B, K, gq, hd, smax, pos, window = (case[k] for k in (
+        "B", "K", "g", "hd", "smax", "pos", "window"))
+    log(f"kernel check: decode_attention {json.dumps(case)}")
+    q = torch.randn(B, K, gq, hd, generator=g, device=DEVICE
+                    ).to(torch.bfloat16)
+    k = torch.randn(B, K, smax, hd, generator=g, device=DEVICE
+                    ).to(torch.bfloat16)
+    v = torch.randn(B, K, smax, hd, generator=g, device=DEVICE
+                    ).to(torch.bfloat16)
+    lo, hi = ops.live_range(pos, smax, window)
+    live = hi - lo + 1
+    qf = q.float()
+    call = lambda: ops.decode_attention(q, k, v, pos=pos, window=window)
+    alone = lambda: kernel.decode_attention(q, k, v, lo=lo, live=live)
+    plain = lambda: ref.decode_attention_ref(q, k, v, pos=pos, window=window)
+    before = ops.decode_attention.launches
+    got, want = call(), plain()
+    torch.cuda.synchronize()
+    expect(ops.decode_attention.launches == before + 1, "decode launches")
+    expect(got.shape == q.shape and got.dtype == torch.float32,
+           "decode output", got.shape, got.dtype)
+    expect(torch.equal(got, call()), "decode attention is not repeatable")
+    s = torch.einsum("bkgd,bksd->bkgs", qf, k.float()) / math.sqrt(hd)
+    s = torch.where(ref.valid_slots(pos, smax, window, q.device), s,
+                    ref.NEG_INF)
+    p = torch.softmax(s, -1)
+    control = torch.einsum("bkgs,bksd->bkgd", p, v.float())
+    pmax, vmax = float(p.max()), float(v.float().abs().max())
+    del s, p
+    atol = DECODE_FLIPS * 2 ** -7 * pmax * vmax + 1e-5 * vmax
+    err = float((got - want).abs().max())
+    control_err = float((control - want).abs().max())
+    del control
+    expect(err <= atol, "decode kernel differs from its plain version",
+           case, err, atol)
+    expect(err < control_err, "decode kernel no closer to the plain "
+           "version than the control without bf16 p", err, control_err)
+    BK = B * K
+    nbytes = (2 * BK * live * hd * 2 + BK * gq * live * 4
+              + BK * gq * hd * 4)
+    flops = 4 * BK * gq * live * hd
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    del got, want
+    return {
+        "op": "decode_attention", **case, "live": live,
+        "max_abs_err": err, "atol": atol, "control_err": control_err,
+        "ms": cuda_ms(torch, call, reps=10),
+        "kernel_only_ms": cuda_ms(torch, alone, reps=10),
+        **device_cols(alone, "decode_attention", len(kernel.KERNELS)),
+        "plain_ms": cuda_ms(torch, plain, reps=3),
+        "bound_ms": bound, "bound_by": "bytes", "bytes": nbytes,
+        "flops": flops, "launches_per_call": len(kernel.KERNELS),
+    }
+
+
+def phase_decode_attention(torch, ptxas: dict) -> list:
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(13)
+    reset_model_launches()
+    rows = []
+    for case in DECODE_CASES:
+        hd = case["hd"]
+        rows.append({**decode_case(torch, case, g), **{
+            f"{name}_{k}": v for name in ("scores", "weights")
+            for k, v in ptxas_of(ptxas, "decode_attention",
+                                 f"decode_{name}_kernelILi{hd}EE").items()}})
+        log("kernel " + json.dumps(rows[-1]))
+        torch.cuda.empty_cache()
+    rows[0]["phase_launches"] = read_model_launches()["decode_attention"]
+    return rows
+
+
 def ptxas_kernels(report: str) -> dict:
     """{mangled kernel name: (registers, spill store bytes)} from
     ``nvcc -Xptxas -v`` output."""
@@ -4084,9 +4233,10 @@ def ptxas_kernels(report: str) -> dict:
 
 
 def build_all(args) -> dict:
-    """Build the five kernel libraries at once (one nvcc each) and report
+    """Build the six kernel libraries at once (one nvcc each) and report
     what ptxas says of each kernel; returns {library stem: {kernel:
     (registers, spill bytes)}}."""
+    from repro_torch.kernels.decode_attention import kernel as dkernel
     from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.hash_join import kernel as hkernel
     from repro_torch.kernels.mlstm import kernel as mkernel
@@ -4098,7 +4248,7 @@ def build_all(args) -> dict:
         lib, report = mod.build(ptxas_report=True)
         return lib, report, time.perf_counter() - t0
 
-    mods = (skernel, hkernel, fkernel, rkernel, mkernel)
+    mods = (skernel, hkernel, fkernel, rkernel, mkernel, dkernel)
     with ThreadPoolExecutor(max_workers=len(mods)) as pool:
         built = list(pool.map(timed, mods))
     found = {}
@@ -4141,7 +4291,7 @@ def main() -> int:
     ap.add_argument("--log-dir", default=None,
                     help="also write ptxas's reports and the kernel table "
                          "here")
-    ap.add_argument("--only", choices=["11g", "12"], default=None,
+    ap.add_argument("--only", choices=["11g", "12", "13"], default=None,
                     help="build the kernels and run this phase alone "
                          "(prints no result line)")
     args = ap.parse_args()
@@ -4181,6 +4331,10 @@ def main() -> int:
     if args.only == "11g":
         phase_expert_parallel(torch, args.seed)
         phase_done("11g (expert parallelism)", clock)
+        return 0
+    if args.only == "13":
+        phase_decode_attention(torch, ptxas)
+        phase_done("13 (decode attention)", clock)
         return 0
     from repro_torch.examples.bf16_keys import lineitem_for_keys
     if args.only == "12":
@@ -4277,6 +4431,15 @@ def main() -> int:
                 f.write(json.dumps(row) + "\n")
     families = phase_families(torch, args.seed)
     clock = phase_done("10 (model families)", clock)
+
+    # 13. decode attention over the ring cache
+    torch.cuda.empty_cache()
+    decode_rows = phase_decode_attention(torch, ptxas)
+    if args.log_dir:
+        with open(os.path.join(args.log_dir, "kernels.jsonl"), "a") as f:
+            for row in decode_rows:
+                f.write(json.dumps(row) + "\n")
+    clock = phase_done("13 (decode attention)", clock)
 
     # 11. distribution: two ranks on the one card
     torch.cuda.empty_cache()
@@ -4385,6 +4548,36 @@ def main() -> int:
             "spill_bytes": row["spill_bytes"],
             **({"kernel": row["kernel"]} if "kernel" in row else {}),
         })
+    row = decode_rows[0]
+    name = "decode_attention"
+    by_path = {"prefill_4x4096": model["prefill"]["launches"][name],
+               "serve_loop": model["serve"]["launches"][name],
+               f"decode_{LONG_PROMPT}_f32":
+                   model["long"]["decode_launches"][name],
+               "launcher": model["launcher"][name],
+               "xlstm_serve_loop": xlstm["serve"]["launches"][name],
+               f"xlstm_decode_{XLSTM_LONG_PROMPT}_f32":
+                   xlstm["long"]["decode_launches"][name],
+               "xlstm_launcher": xlstm["launcher"][name],
+               **{f"{m}_decode_{FAMILY_DECODE_STEPS}_steps":
+                  families[m]["decode"]["launches"][name]
+                  for m in ("granite", "whisper")},
+               f"phi4_decode_{PHI4_DECODE}_f32":
+                   families["phi4"]["long"]["decode_launches"][name],
+               "kernel_check_13": row["phase_launches"]}
+    kernels.append({
+        "name": name, "route": "cuda", "source": SOURCES[name],
+        "replaces": REPLACES[name],
+        # the serving path: ServeLoop's decode steps
+        "launches": by_path["serve_loop"], "launches_by_path": by_path,
+        "max_abs_err": max(r["max_abs_err"] for r in decode_rows),
+        **{k: row[k] for k in ("launches_per_call", "ms", "plain_ms",
+                               "bound_ms", "bound_by",
+                               "kernel_only_ms", "device_ms",
+                               "scores_registers", "weights_registers",
+                               "scores_spill_bytes", "weights_spill_bytes")},
+        "library_ms": None, "shape": json.dumps(DECODE_MAIN),
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import sys
 import threading
 from typing import Mapping
 
@@ -197,8 +198,10 @@ def placements(spec, mesh) -> tuple:
 
 
 def _is_dtensor(x) -> bool:
-    from torch.distributed.tensor import DTensor
-    return isinstance(x, DTensor)
+    # no tensor is a DTensor before its module is loaded, and loading it
+    # takes seconds: a process that shards nothing never does
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
 
 
 def _under_rules(x) -> bool:

@@ -13,8 +13,11 @@ Attention in prefill goes through the flash attention kernel
 (:func:`repro_torch.kernels.flash_attention.ops.flash_attention`), where
 ``repro``'s model calls the XLA blockwise path (``flash_mha``); the two
 compute the same function, and the tests hold the port's path against
-``repro``'s. Decode is a one-token softmax over a ring-buffer KV cache
-and reaches no kernel, as in ``repro``.
+``repro``'s. Decode is a one-token softmax over a ring-buffer KV cache,
+plain ``jnp`` in ``repro``; here it goes through the decode attention
+kernels (:func:`repro_torch.kernels.decode_attention.ops.
+decode_attention`), which read the cache's live slots only, with
+``repro``'s arithmetic.
 
 Dtypes follow ``repro``: activations in ``cfg.dtype``; a product of a
 tensor with a parameter of another dtype is taken in the promoted dtype,
@@ -35,6 +38,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (gather_inner, gather_inner_grad,
                                               local_call, lshard, merge_last,
                                               split_last, write_slot)
+from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 
 __all__ = ["NEG_INF", "ParamModule", "mm", "rmsnorm", "rope",
@@ -263,8 +267,9 @@ def attention_decode(p: Params, x: torch.Tensor, cache: dict,
     at write time with the absolute position). The new K/V are written
     into the cache tensors in place; the returned cache holds the same
     tensors and ``len + 1``. Scores and the weighted sum run in float32
-    over bfloat16 K/V (a narrower cache dtype is upcast to bfloat16
-    first), with the probabilities rounded to bfloat16, as in ``repro``.
+    over bfloat16 K/V (a cache of another dtype is cast to bfloat16
+    first), with the probabilities rounded to bfloat16, as in ``repro``
+    (``kernels/decode_attention``: on the card over the live slots only).
     ``kind`` is ``"attn"`` or ``"local"``: cross attention decodes
     through ``model._cross_decode``.
     """
@@ -283,18 +288,8 @@ def attention_decode(p: Params, x: torch.Tensor, cache: dict,
     ck_m = ck if ck.dtype == torch.bfloat16 else ck.to(torch.bfloat16)
     cv_m = cv if cv.dtype == torch.bfloat16 else cv.to(torch.bfloat16)
 
-    qg = q.reshape(B, K, H // K, hd)
-    s = torch.einsum("bkgd,bksd->bkgs", qg.float(),
-                     ck_m.float()) / math.sqrt(hd)
-    kpos = torch.arange(smax, device=x.device)
-    # before the ring wraps only slots <= pos are written; after, all are
-    valid = (kpos <= pos) | (pos >= smax)
-    if kind == "local" and cfg.local_window < smax:
-        valid &= kpos > pos - cfg.local_window
-    s = torch.where(valid, s, NEG_INF)
-    e = torch.exp(s - s.amax(-1, keepdim=True))
-    probs = (e / e.sum(-1, keepdim=True)).to(cv_m.dtype)
-    o = torch.einsum("bkgs,bksd->bkgd", probs.float(), cv_m.float())
+    o = decode_attention(q.reshape(B, K, H // K, hd), ck_m, cv_m, pos=pos,
+                         window=cfg.local_window if kind == "local" else None)
     out = _out_proj(p, o.reshape(B, 1, H * hd).to(x.dtype))
     return out, {"k": ck, "v": cv, "len": pos + 1}
 

@@ -17,6 +17,9 @@ SOURCES = {
     "mlstm/csrc/mlstm_chunkwise.cu": ("mlstm_combine_kernel",
                                       "mlstm_output_kernel",
                                       "mlstm_state_kernel"),
+    "decode_attention/csrc/decode_attention.cu": ("decode_combine_kernel",
+                                                  "decode_scores_kernel",
+                                                  "decode_weights_kernel"),
 }
 
 
