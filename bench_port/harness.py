@@ -1,13 +1,23 @@
 """Run one cell of the port's benchmark once.
 
 Everything that belongs to one configuration, traffic mix or metric is
-found by its name in ``BENCHMARK.json``:
+found by its name in ``BENCHMARK.json``. A configuration brings, as new
+files and entries only:
 
-- the configuration: the file its entry names (the ``model`` object is
-  the program's ``ModelConfig`` as it is run; ``reference`` names its
-  plain reference, ``bench_port/reference/<reference>.py``), and its
-  frozen operation counts, ``bench_port/flops/<config>.py``;
-- the traffic mix: ``bench_port/traffic/<traffic>.json``, whose
+- its file (``configs``' ``file``): the ``model`` object is the
+  program's ``ModelConfig`` as it is run, nested objects included (each
+  made the dataclass ``ModelConfig`` types it as); ``reference`` names
+  its plain reference;
+- the plain reference, ``bench_port/reference/<reference>.py``, which
+  exports ``weight_specs(m)`` (the parameter list the weights are drawn
+  from: name -> (shape, dtype, scale), in order), ``routed_layers(m)``
+  (the layers whose routing the prefill judge follows), ``hidden`` and
+  ``logits`` (the forward pass; ``hidden`` reports each layer's cache
+  entries as a tuple of tensors with the position axis at 2, or None),
+  ``Arith`` (its arithmetic, float8 for the control) and, where it
+  routes, ``group_size``;
+- its frozen operation counts, ``bench_port/flops/<config>.py``;
+- a cell's traffic mix: ``bench_port/traffic/<traffic>.json``, whose
   ``kind`` names the module that runs that kind of traffic,
   ``bench_port/kinds/<kind>.py``;
 - the limits of the numbers that decide ``correct``:
@@ -19,11 +29,12 @@ A run: the weights are made on the card from the seed and handed to a
 one shape the cell uses; the window runs for ``seconds`` (or, traced,
 a lead step and ``trace_steps`` steps under ``torch.profiler``). Then
 the peak memory is read, the program's state is freed, and the plain
-reference (``bench_port/reference``), handed the same weights made
-again from the seed, judges what the window served.
+reference, handed the same weights made again from the seed, judges
+what the window served.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import importlib
 import importlib.util
@@ -31,6 +42,7 @@ import json
 import random
 import sys
 import time
+import typing
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -66,6 +78,7 @@ class Spec:
     flops: object
     end_to_end: list        # (name, unit)
     per_layer: list         # (name, unit, reader)
+    ref: object             # the configuration's plain reference
 
 
 def _mine(entries: list, cell: str) -> list:
@@ -81,9 +94,10 @@ def load_spec(workload: str, root: Path = ROOT) -> Spec:
     w = cells[workload]
     conf = {c["name"]: c for c in bench["configs"]}[w["config"]]
     limits = HERE / "limits" / f"{workload}.json"
+    config = json.loads((root / conf["file"]).read_text())
     return Spec(
         cell=workload,
-        config=json.loads((root / conf["file"]).read_text()),
+        config=config,
         traffic=json.loads((HERE / "traffic" / f"{w['traffic']}.json")
                            .read_text()),
         limits=json.loads(limits.read_text()) if limits.exists() else None,
@@ -92,18 +106,30 @@ def load_spec(workload: str, root: Path = ROOT) -> Spec:
                     for e in _mine(bench["end_to_end"], workload)],
         per_layer=[(e["name"], e["unit"],
                     load_file(HERE / "metrics" / f"{e['name']}.py").read)
-                   for e in _mine(bench["per_layer"], workload)])
+                   for e in _mine(bench["per_layer"], workload)],
+        ref=importlib.import_module(
+            f"bench_port.reference.{config['reference']}"))
+
+
+def _typed(cls, fields: dict):
+    """``cls(**fields)``, each dict that ``cls`` types as a dataclass (or
+    as a dataclass or None) made that dataclass, nested ones too."""
+    hints = typing.get_type_hints(cls)
+    out = dict(fields)
+    for name, value in fields.items():
+        kinds = typing.get_args(hints[name]) or (hints[name],)
+        sub = next((t for t in kinds if dataclasses.is_dataclass(t)), None)
+        if isinstance(value, dict) and sub is not None:
+            out[name] = _typed(sub, value)
+    return cls(**out)
 
 
 def build_model(m: dict, weights: dict):
     """The program's model of configuration ``m``, holding ``weights``
     (assigned, not copied)."""
-    from repro_torch.configs.base import ModelConfig, MoEConfig
+    from repro_torch.configs.base import ModelConfig
     from repro_torch.models.model import Model
-    fields = dict(m)
-    if fields.get("moe"):
-        fields["moe"] = MoEConfig(**fields["moe"])
-    model = Model(ModelConfig(**fields), device="meta")
+    model = Model(_typed(ModelConfig, m), device="meta")
     model.load_state_dict(weights, strict=True, assign=True)
     return model.eval()
 
@@ -115,8 +141,7 @@ class Ctx:
         self.m = spec.config["model"]
         self.traffic = spec.traffic
         self.flops = spec.flops
-        self.ref = importlib.import_module(
-            f"bench_port.reference.{spec.config['reference']}")
+        self.ref = spec.ref
         self.seed = seed
         self.device = torch.device(device)
         self.rng = random.Random(derive(seed, "sample"))
@@ -161,7 +186,8 @@ def run(spec: Spec, seed: int, seconds: float, trace: bool,
     if on_card:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    ctx.model = build_model(ctx.m, make_weights(ctx.m, seed, ctx.device))
+    specs = ctx.ref.weight_specs(ctx.m)
+    ctx.model = build_model(ctx.m, make_weights(specs, seed, ctx.device))
     st = kind.setup(ctx)
     if on_card:
         torch.cuda.synchronize()
@@ -202,7 +228,7 @@ def run(spec: Spec, seed: int, seconds: float, trace: bool,
     for key in ("base", "caches"):
         st.pop(key, None)
     _free(ctx.device)
-    weights = make_weights(ctx.m, seed, ctx.device)
+    weights = make_weights(specs, seed, ctx.device)
     numbers, judged = kind.judge(ctx, st, weights)
     correct, checks = judge(spec, numbers)
     device_info = {

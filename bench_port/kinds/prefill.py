@@ -10,10 +10,12 @@ a batch completes when its first tokens (the argmax over the real
 vocabulary of each prompt's last logits) are on the host.
 
 The judged batches are a reservoir sample, drawn from the seed, of the
-batches run. The judge holds each one's last logits, the K/V it
-returned for a cache (every layer, at ``kv_positions`` positions drawn
-from the seed, the first and last among them) and, where the model
-routes to experts, the router's choice of every MoE layer.
+batches run. The judge holds each one's last logits, what each layer
+handed to its cache (``kvs``: per layer a tuple of tensors with the
+position axis at 2, or None for a layer that caches nothing; each
+tensor at ``kv_positions`` positions drawn from the seed, the first and
+last among them, into buffers made in set-up) and the router's choice
+of every layer the reference's ``routed_layers`` names.
 
 That choice is read through one interface of the program, which a
 change to the program has to keep for this judge (or replace by a hook
@@ -23,8 +25,8 @@ at each call, called once per MoE layer of a forward, and returns a
 tuple whose second item is the chosen experts, an integer tensor (n, B,
 g, k) of the n groups of g tokens of each sequence. The judge wraps it
 for the judged batches alone. Where a judged batch's record lacks that
-form, ``route_unrecorded`` reads 1 (limit 0): the run is not correct,
-and its checks say why.
+form, or holds another count than the routed layers, ``route_unrecorded``
+reads 1 (limit 0): the run is not correct, and its checks say why.
 """
 from __future__ import annotations
 
@@ -49,9 +51,9 @@ def _tokens(ctx, i: int) -> torch.Tensor:
 
 def _forward(ctx, i: int, keep: dict | None = None):
     """Batch ``i``; for a judged batch, ``keep`` receives its last
-    logits, the K/V it returned at ``keep["kv_pos"]`` (into the buffer
-    ``keep["kv"]``, (layers, 2, B, K, positions, hd), made if absent)
-    and what ``moe.route`` returned as each layer's choice."""
+    logits, each layer's cache entries at ``keep["kv_pos"]`` (into the
+    buffers ``keep["kv"]``, one per tensor, made if absent) and what
+    ``moe.route`` returned as each layer's choice."""
     from repro_torch.models import moe
     tokens = _tokens(ctx, i)
     original = moe.route
@@ -76,29 +78,31 @@ def _forward(ctx, i: int, keep: dict | None = None):
         with torch.profiler.record_function("prefill.judge_sample"):
             at, buf = keep["kv_pos"], keep.get("kv")
             if buf is None:
-                k = kvs[0][0]
-                buf = keep["kv"] = k.new_empty(
-                    (len(kvs), 2, *k.shape[:2], len(at), k.shape[3]))
-            for layer, (k, v) in enumerate(kvs):
-                torch.index_select(k, 2, at, out=buf[layer, 0])
-                torch.index_select(v, 2, at, out=buf[layer, 1])
+                buf = keep["kv"] = [None if kv is None else tuple(
+                    t.new_empty((*t.shape[:2], len(at), *t.shape[3:]))
+                    for t in kv) for kv in kvs]
+            for kv, out in zip(kvs, buf):
+                for t, o in zip(kv or (), out or ()):
+                    torch.index_select(t, 2, at, out=o)
             keep["logits"] = logits
     del kvs
 
 
 def setup(ctx) -> dict:
     """Warm the one shape the traffic uses with one batch, not judged,
-    that takes the judged path; draw the judged K/V positions; make a
-    K/V buffer for each sample slot (reused when the reservoir replaces
-    the slot's batch)."""
+    that takes the judged path; draw the judged K/V positions; make the
+    cache entries' buffers for each sample slot (reused when the
+    reservoir replaces the slot's batch)."""
     S = ctx.traffic["prompt_len"]
     drawn = random.Random(derive(ctx.seed, "kv_positions")).sample(
         range(1, S - 1), ctx.traffic["kv_positions"] - 2)
     kv_pos = torch.tensor(sorted({0, S - 1, *drawn}), device=ctx.device)
     warm = {"kv_pos": kv_pos}
     _forward(ctx, -1, warm)
-    bufs = [warm["kv"]] + [torch.empty_like(warm["kv"])
-                           for _ in range(ctx.traffic["sample_batches"] - 1)]
+    bufs = [warm["kv"]] + [
+        [None if kv is None else tuple(torch.empty_like(t) for t in kv)
+         for kv in warm["kv"]]
+        for _ in range(ctx.traffic["sample_batches"] - 1)]
     return {"next": 0, "samples": {}, "kv_pos": kv_pos, "kv_bufs": bufs}
 
 
@@ -137,42 +141,57 @@ def work(ctx, seg: dict) -> dict:
 
 
 def _follow(ctx, routing: list, B: int, S: int) -> list | None:
-    """Each MoE layer's recorded choice as (B, n, g, k), or None where
-    the record lacks the form the judge depends on."""
+    """Each routed layer's recorded choice as (B, n, g, k), or None
+    where the record lacks the form the judge depends on: one (n, B, g,
+    k) integer tensor for each layer of the reference's
+    ``routed_layers``."""
     m = ctx.m
     g = ctx.ref.group_size(m, S)
     shape = (S // g, B, g, m["moe"]["experts_per_token"])
-    if len(routing) != m["num_layers"] or not all(
+    routed = ctx.ref.routed_layers(m)
+    if len(routing) != len(routed) or not all(
             isinstance(r, torch.Tensor) and tuple(r.shape) == shape
             and not r.is_floating_point() for r in routing):
         print(f"bench_port: the judged batch's routing was not recorded "
               f"through repro_torch.models.moe.route as (n, B, g, k) = "
-              f"{shape} once per layer; the judge cannot follow it",
-              file=sys.stderr)
+              f"{shape} once per routed layer ({len(routed)} layers); the "
+              f"judge cannot follow it", file=sys.stderr)
         return None
     return [r.transpose(0, 1) for r in routing]
 
 
-def _kv_rel(got, want: list) -> float:
-    """The widest relative L2 gap of a position's keys or values (all
-    kv heads of one layer and sequence) against the reference's; each
-    side a (k, v) pair a layer."""
+def _kv_rel(got: list, want: list) -> float:
+    """The widest relative L2 gap of one position's cache entry (one
+    tensor of one layer and sequence, over every axis but the batch (0)
+    and the position (2): all kv heads of a layer's keys, say) against
+    the reference's. Each side holds per layer a tuple of tensors, or
+    None where the layer caches nothing; a difference in structure (the
+    count of layers or of tensors, a shape) reads 1."""
     if len(got) != len(want):
         return 1.0
     worst = 0.0
-    for pair, ref_pair in zip(got, want):
-        for g, w in zip(pair, ref_pair):
-            rel = (g.float() - w).norm(dim=(1, 3)) / w.norm(dim=(1, 3))
+    for mine, ref in zip(got, want):
+        if mine is None or ref is None:
+            if mine is not ref:
+                return 1.0
+            continue
+        if len(mine) != len(ref) or any(
+                g.shape != w.shape for g, w in zip(mine, ref)):
+            return 1.0
+        for g, w in zip(mine, ref):
+            dims = [a for a in range(w.dim()) if a not in (0, 2)]
+            rel = (g.float() - w).norm(dim=dims) / w.norm(dim=dims)
             worst = max(worst, float(rel.max()))
     return worst
 
 
 def _numbers(ctx, W, tokens, got: dict) -> dict:
     """The reference's verdict on one batch as served: ``got`` holds
-    its last logits (B, V), its K/V at ``kv_pos`` and, where the model
-    routes, each layer's recorded choice."""
+    its last logits (B, V), its cache entries at ``kv_pos`` and, where
+    the model routes, each routed layer's recorded choice."""
     m = ctx.m
-    follow = (_follow(ctx, got["routing"], *tokens.shape) if m.get("moe")
+    routed = ctx.ref.routed_layers(m)
+    follow = (_follow(ctx, got["routing"], *tokens.shape) if routed
               else None)
     h, stats = ctx.ref.hidden(m, W, tokens, follow=follow,
                               kv_at=got["kv_pos"])
@@ -183,7 +202,7 @@ def _numbers(ctx, W, tokens, got: dict) -> dict:
     rel = (served_logits - want).norm(dim=-1) / want.norm(dim=-1)
     out = {"served_gap": float(gap.max()), "logits_rel": float(rel.max()),
            "kv_rel": _kv_rel(got["kv"], stats["kv"])}
-    if m.get("moe"):
+    if routed:
         out["route_unrecorded"] = float(follow is None)
         out["route_shortfall"] = stats.get("route_shortfall", 0.0)
     return out

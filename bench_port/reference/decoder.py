@@ -7,8 +7,10 @@ attention with RoPE on the two halves of the head dim and a causal
 softmax, residual; RMSNorm, a SwiGLU MLP or a mixture of experts,
 residual; a final RMSNorm and the logits. It imports nothing of the
 program and uses none of its kernels, oracles or helpers; it is handed
-the benchmark's own weights (``bench_port/weights.py``), the same as the
-program, and works everything else out again.
+the benchmark's own weights (``bench_port/weights.py``, drawn from the
+parameter list ``weight_specs`` declares here), the same as the program,
+and works everything else out again. ``routed_layers`` names the layers
+whose routing the prefill judge follows.
 
 The mixture of experts keeps the configuration's routing rule, which
 departs from the published dropless layer (see the configuration file):
@@ -40,7 +42,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["Arith", "capacity", "group_size", "hidden", "logits"]
+__all__ = ["Arith", "capacity", "group_size", "hidden", "logits",
+           "routed_layers", "weight_specs"]
 
 FP8_MAX = 448.0
 
@@ -59,6 +62,50 @@ def group_size(m: dict, S: int) -> int:
     while S % g:
         g -= 1
     return g
+
+
+def weight_specs(m: dict) -> dict:
+    """The parameter list the benchmark draws (``bench_port/weights.py``):
+    name -> (shape, dtype, scale), scale None for ones. The program's
+    parameter names and shapes; bfloat16 matrices at ``1/sqrt(fan_in)``,
+    0.02 for the embedding, the head and the float32 router; float32
+    norm scales of ones."""
+    d, f, V = m["d_model"], m["d_ff"], -(-m["vocab_size"] // 256) * 256
+    H, K, hd = m["num_heads"], m["num_kv_heads"], m["head_dim"]
+    bf, f32 = getattr(torch, m["param_dtype"]), torch.float32
+    specs = {"embed": ((V, d), bf, 0.02)}
+    if not m["tie_embeddings"]:
+        specs["lm_head"] = ((d, V), bf, 0.02)
+    specs["final_norm.scale"] = ((d,), f32, None)
+    for i in range(m["num_layers"]):
+        p = f"layers.{i}."
+        specs.update({
+            p + "norm1.scale": ((d,), f32, None),
+            p + "mix.wq": ((d, H * hd), bf, 1 / math.sqrt(d)),
+            p + "mix.wk": ((d, K * hd), bf, 1 / math.sqrt(d)),
+            p + "mix.wv": ((d, K * hd), bf, 1 / math.sqrt(d)),
+            p + "mix.wo": ((H * hd, d), bf, 1 / math.sqrt(H * hd)),
+            p + "norm2.scale": ((d,), f32, None)})
+        moe = m.get("moe")
+        if moe:
+            E = moe["num_experts"]
+            specs.update({
+                p + "ffn.router": ((d, E), f32, 0.02),
+                p + "ffn.experts.w_gate": ((E, d, f), bf, 1 / math.sqrt(d)),
+                p + "ffn.experts.w_up": ((E, d, f), bf, 1 / math.sqrt(d)),
+                p + "ffn.experts.w_down": ((E, f, d), bf, 1 / math.sqrt(f))})
+        else:
+            specs.update({
+                p + "ffn.w_gate": ((d, f), bf, 1 / math.sqrt(d)),
+                p + "ffn.w_up": ((d, f), bf, 1 / math.sqrt(d)),
+                p + "ffn.w_down": ((f, d), bf, 1 / math.sqrt(f))})
+    return specs
+
+
+def routed_layers(m: dict) -> list:
+    """The layers that route to experts, in order: every layer of a
+    mixture of experts, none of a dense model."""
+    return list(range(m["num_layers"])) if m.get("moe") else []
 
 
 def _fp8(x: torch.Tensor, dim: int) -> torch.Tensor:

@@ -32,8 +32,9 @@ def smoke(arch: str) -> dict:
 
 
 def program(m: dict, seed: int = 3):
-    W = make_weights(m, seed, "cpu")
-    return harness.build_model(m, W), make_weights(m, seed, "cpu")
+    specs = ref.weight_specs(m)
+    return (harness.build_model(m, make_weights(specs, seed, "cpu")),
+            make_weights(specs, seed, "cpu"))
 
 
 def recorded_routing(monkeypatch) -> list:

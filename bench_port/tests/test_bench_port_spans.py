@@ -35,8 +35,8 @@ SPANS = {
 def _traced(cell):
     spec = tiny_spec(cell)
     ctx = harness.Ctx(spec, SEED, "cpu")
-    ctx.model = harness.build_model(ctx.m, make_weights(ctx.m, SEED,
-                                                        ctx.device))
+    ctx.model = harness.build_model(ctx.m, make_weights(
+        spec.ref.weight_specs(ctx.m), SEED, ctx.device))
     kind = harness.kind_of(spec)
     st = kind.setup(ctx)
     with profile(activities=[ProfilerActivity.CPU]) as prof:

@@ -3,13 +3,14 @@
 Both the program and the reference are handed what this module makes:
 the program through ``load_state_dict(..., assign=True)`` into a model
 built on ``meta``, the reference by calling it again after the window.
-The weights are drawn on the device in the type they are served in
-(bfloat16 matrices; float32 norm scales and router), every matrix of a
-dtype as a view of one buffer filled by a single ``randn`` call and then
-scaled in place (``1/sqrt(fan_in)``; 0.02 for the embedding, the head
-and the router; ones for the norm scales). The names and shapes are the
-program's parameter names. The same seed on the same device gives the
-same bits.
+What is drawn is the parameter list that the cell's plain reference
+declares (``weight_specs(m)`` of ``bench_port/reference/<reference>.py``:
+name -> (shape, dtype, scale), in order, scale None for ones), so a
+configuration brings its own list with its reference. The weights are
+drawn on the device in the type they are served in, every matrix of a
+dtype as a view of one buffer filled by a single ``randn`` call over the
+drawn entries in list order and then scaled in place; then the ones.
+The same list and seed on the same device give the same bits.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import math
 
 import torch
 
-__all__ = ["derive", "generator", "make_weights", "weight_specs"]
+__all__ = ["derive", "generator", "make_weights"]
 
 
 def derive(seed: int, *tags) -> int:
@@ -34,45 +35,10 @@ def generator(device, seed: int, *tags) -> torch.Generator:
     return g
 
 
-def weight_specs(m: dict) -> dict:
-    """name -> (shape, dtype, scale); scale None for ones."""
-    d, f, V = m["d_model"], m["d_ff"], -(-m["vocab_size"] // 256) * 256
-    H, K, hd = m["num_heads"], m["num_kv_heads"], m["head_dim"]
-    bf, f32 = getattr(torch, m["param_dtype"]), torch.float32
-    specs = {"embed": ((V, d), bf, 0.02)}
-    if not m["tie_embeddings"]:
-        specs["lm_head"] = ((d, V), bf, 0.02)
-    specs["final_norm.scale"] = ((d,), f32, None)
-    for i in range(m["num_layers"]):
-        p = f"layers.{i}."
-        specs.update({
-            p + "norm1.scale": ((d,), f32, None),
-            p + "mix.wq": ((d, H * hd), bf, 1 / math.sqrt(d)),
-            p + "mix.wk": ((d, K * hd), bf, 1 / math.sqrt(d)),
-            p + "mix.wv": ((d, K * hd), bf, 1 / math.sqrt(d)),
-            p + "mix.wo": ((H * hd, d), bf, 1 / math.sqrt(H * hd)),
-            p + "norm2.scale": ((d,), f32, None)})
-        moe = m.get("moe")
-        if moe:
-            E = moe["num_experts"]
-            specs.update({
-                p + "ffn.router": ((d, E), f32, 0.02),
-                p + "ffn.experts.w_gate": ((E, d, f), bf, 1 / math.sqrt(d)),
-                p + "ffn.experts.w_up": ((E, d, f), bf, 1 / math.sqrt(d)),
-                p + "ffn.experts.w_down": ((E, f, d), bf, 1 / math.sqrt(f))})
-        else:
-            specs.update({
-                p + "ffn.w_gate": ((d, f), bf, 1 / math.sqrt(d)),
-                p + "ffn.w_up": ((d, f), bf, 1 / math.sqrt(d)),
-                p + "ffn.w_down": ((f, d), bf, 1 / math.sqrt(f))})
-    return specs
-
-
 @torch.no_grad()
-def make_weights(m: dict, seed: int, device) -> dict:
-    """The state dict of the configuration ``m`` (its ``model`` object)
-    for ``seed``, on ``device``."""
-    specs = weight_specs(m)
+def make_weights(specs: dict, seed: int, device) -> dict:
+    """The state dict of the parameter list ``specs`` (a reference's
+    ``weight_specs(m)``) for ``seed``, on ``device``."""
     out = {}
     for dtype in sorted({s[1] for s in specs.values()}, key=str):
         drawn = [(n, s) for n, s in specs.items()
