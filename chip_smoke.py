@@ -203,7 +203,15 @@ before the result line):
       control must fail ``FLASH_TOL`` there too); phi4-mini's 4 x 4096
       in bf16 and its float32 1024- and 1088-token prefills (simt, GQA
       24/8, hd 128); then hd 96 in float32 (simt) and a ragged
-      Skv=1499 in float32; times, bound and SDPA's time as in 6a;
+      Skv=1499 in float32; last DeepSeek-V2-Lite's latent attention at
+      its benchmark cell's shape (1 x 32,768, 16 heads, q/k 192, v 128,
+      the YaRN scale 0.114721), which no phase serves: one launch of
+      ``flash_mla_kernel`` and of no other kernel, no spill, the
+      one-bf16-P control failing ``FLASH_TOL``, the plain version one
+      head at a time and SDPA with ``is_causal`` (a 32k mask's scores
+      would not fit); times, bound (2·(qk + v) a live pair) and SDPA's
+      time as in 6a; the ``kernels`` line's flash entry carries the
+      latent case under ``mla``;
    b. granite-moe-3b (``configs/granite_moe_3b.py``: 32 layers, d_model
       1536, 40 experts top-8 of d_ff 512, group 512, capacity 128): a 4 x
       4096 prefill (32 flash launches, all wgmma; aux finite; the share
@@ -1459,25 +1467,46 @@ def rel_err(torch, got, want) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
 
 
-def flash_one_bf16_p(torch, q, k, v, *, causal: bool, window):
+def flash_one_bf16_p(torch, q, k, v, *, causal: bool, window, scale=None):
     """The control for ``FLASH_TOL``: the plain version of
     ``kernels/flash_attention/ref.py`` with P = exp(s - max) rounded to
-    bf16 before P V; the row sums stay float32."""
+    bf16 before P V; the row sums stay float32. One query head at a time,
+    so 32k-token scores fit."""
     from repro_torch.kernels.flash_attention import ref
     H, K, S, hd = q.shape[1], k.shape[1], q.shape[2], q.shape[3]
+    scale = hd ** -0.5 if scale is None else scale
     mask = ref.band_mask(S, k.shape[2], causal=causal, window=window,
                          device=q.device)
-    out = torch.empty_like(q)
-    for b in range(q.shape[0]):       # one batch entry's scores at a time
-        kb = k[b].float().repeat_interleave(H // K, dim=0)
-        vb = v[b].float().repeat_interleave(H // K, dim=0)
-        s = torch.einsum("hqd,hkd->hqk", q[b].float(), kb) / hd ** 0.5
-        s = torch.where(mask, s, ref.NEG_INF)
-        p = torch.exp(s - s.amax(-1, keepdim=True))
-        l = p.sum(-1, keepdim=True)
-        o = torch.einsum("hqk,hkd->hqd", p.bfloat16().float(), vb)
-        out[b] = (o / l.clamp_min(1e-30)).to(q.dtype)
+    out = q.new_empty(q.shape[:3] + v.shape[3:])
+    for b in range(q.shape[0]):
+        for h in range(H):
+            s = q[b, h].float() @ k[b, h // (H // K)].float().T * scale
+            s = torch.where(mask, s, ref.NEG_INF)
+            p = torch.exp(s - s.amax(-1, keepdim=True))
+            l = p.sum(-1, keepdim=True)
+            o = p.bfloat16().float() @ v[b, h // (H // K)].float()
+            out[b, h] = (o / l.clamp_min(1e-30)).to(q.dtype)
+            del s, p
     return out
+
+
+# above this many bytes of float32 scores the plain version takes one
+# query head at a time
+PLAIN_SCORE_BYTES = 16 << 30
+
+
+def flash_plain(torch, q, k, v, **kw):
+    """``ref.flash_attention_ref``; one query head at a time where the
+    whole (B, H, Sq, Skv) float32 score matrix would pass
+    ``PLAIN_SCORE_BYTES``."""
+    from repro_torch.kernels.flash_attention import ref
+    B, H, S = q.shape[:3]
+    if B * H * S * k.shape[2] * 4 <= PLAIN_SCORE_BYTES:
+        return ref.flash_attention_ref(q, k, v, **kw)
+    g = H // k.shape[1]
+    return torch.cat([ref.flash_attention_ref(
+        q[:, h:h + 1], k[:, h // g:h // g + 1], v[:, h // g:h // g + 1],
+        **kw) for h in range(H)], dim=1)
 
 
 def flash_case(torch, case: dict, g, *, control: bool = False):
@@ -1489,23 +1518,31 @@ def flash_case(torch, case: dict, g, *, control: bool = False):
     import torch.nn.functional as F
     B, H, K, S, hd = (case[k] for k in ("B", "H", "K", "S", "hd"))
     skv = case.get("Skv", S)        # cross attention: keys of the encoder
+    hd_v = case.get("hd_v", hd)     # latent attention: v narrower than q
+    scale = case.get("scale")       # None: 1/sqrt(hd)
     causal, window, dt = case["causal"], case["window"], case["dtype"]
     dtype = getattr(torch, dt)
     log(f"kernel check: flash_attention {json.dumps(case)}")
     q = torch.randn(B, H, S, hd, generator=g, device=DEVICE, dtype=dtype)
     k = torch.randn(B, K, skv, hd, generator=g, device=DEVICE, dtype=dtype)
-    v = torch.randn(B, K, skv, hd, generator=g, device=DEVICE, dtype=dtype)
-    call = lambda: ops.flash_attention(q, k, v, causal=causal, window=window)
-    alone = lambda: kernel.flash_attention(q, k, v, causal=causal,
-                                           window=window)[0]
-    name = kernel.kernel_for(dtype, hd)
+    v = torch.randn(B, K, skv, hd_v, generator=g, device=DEVICE, dtype=dtype)
+    mkw = dict(causal=causal, window=window, scale=scale)
+    call = lambda: ops.flash_attention(q, k, v, **mkw)
+    alone = lambda: kernel.flash_attention(q, k, v, **mkw)[0]
+    name = kernel.kernel_for(dtype, hd, hd_v)
     before = dict(ops.flash_attention.launches_by_kernel)
-    plain = lambda: ref.flash_attention_ref(q, k, v, causal=causal,
-                                            window=window)
+    plain = lambda: flash_plain(torch, q, k, v, **mkw)
     mask = ref.band_mask(S, skv, causal=causal, window=window,
                          device=DEVICE)
-    library = lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, enable_gqa=K != H)
+    if B * H * S * skv * q.element_size() > PLAIN_SCORE_BYTES:
+        # SDPA's masked form would hold the whole score matrix
+        expect(causal and window is None and S == skv,
+               "SDPA needs a mask at this size", case)
+        library = lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale, enable_gqa=K != H)
+    else:
+        library = lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale, enable_gqa=K != H)
     got, want, lib = call(), plain(), library()
     torch.cuda.synchronize()
     ran = {k: n - before[k] for k, n in
@@ -1514,14 +1551,16 @@ def flash_case(torch, case: dict, g, *, control: bool = False):
            name)
     rtol, atol = FLASH_TOL[dt]
     err = float((got.float() - want.float()).abs().max())
-    expect(got.dtype == dtype and got.shape == q.shape, "flash output",
-           got.dtype, got.shape)
+    expect(got.dtype == dtype and got.shape == (B, H, S, hd_v),
+           "flash output", got.dtype, got.shape)
     expect(bool(torch.isfinite(got).all()), "flash output not finite")
     expect(torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol),
            "flash kernel differs from its plain version", case, err)
     pairs = int(mask.sum())             # the (query, key) pairs this run needs
-    flops = 4 * hd * pairs * B * H
-    nbytes = (2 * B * H * S + 2 * B * K * skv) * hd * q.element_size()
+    # q k^T and P v: 2·(hd + hd_v) a live pair (4·hd at one head dim)
+    flops = 2 * (hd + hd_v) * pairs * B * H
+    # q in and out, k and v: (B·H·S + B·K·Skv)·(hd + hd_v) elements
+    nbytes = (B * H * S + B * K * skv) * (hd + hd_v) * q.element_size()
     t_ops = flops / PEAK_FLOPS[dt] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     one_p = None
@@ -1529,7 +1568,7 @@ def flash_case(torch, case: dict, g, *, control: bool = False):
         # P rounded to one bf16 part before P V, as a kernel that fed it
         # to the tensor cores so would read it: it must fail the gate
         # that the kernel's split form (P = hi + lo) passes
-        one = flash_one_bf16_p(torch, q, k, v, causal=causal, window=window)
+        one = flash_one_bf16_p(torch, q, k, v, **mkw)
         one_p = {"max_abs_err": float((one.float() - want.float())
                                       .abs().max()),
                  "passes": bool(torch.allclose(one.float(), want.float(),
@@ -1541,6 +1580,7 @@ def flash_case(torch, case: dict, g, *, control: bool = False):
     del got, want
     return {
         "op": "flash_attention", **case, "kernel": name,
+        "launches_by_kernel": ran,
         "control_one_bf16_p": one_p, "max_abs_err": err,
         "library_err": float((lib.float() - plain().float()).abs().max()),
         "ms": cuda_ms(torch, call, reps=5),
@@ -1605,12 +1645,16 @@ def ptxas_of(ptxas: dict, stem: str, tag: str) -> dict:
 
 def flash_tag(case: dict) -> str:
     """The mangled-name fragment of the instantiation a case runs:
-    ``flash_wgmma_kernel<hd>`` or ``flash_fwd_kernel<T, hd>``, as the
-    dispatch table picks."""
+    ``flash_wgmma_kernel<hd>``, ``flash_mla_kernel`` or
+    ``flash_fwd_kernel<T, hd>``, as the dispatch table picks."""
     import torch
     from repro_torch.kernels.flash_attention import kernel
     hd = case["hd"]
-    if kernel.kernel_for(getattr(torch, case["dtype"]), hd) == "wgmma":
+    name = kernel.kernel_for(getattr(torch, case["dtype"]), hd,
+                             case.get("hd_v"))
+    if name == "mla":
+        return "flash_mla_kernel"
+    if name == "wgmma":
         return f"flash_wgmma_kernelILi{hd}EE"
     elem = "13__nv_bfloat16" if case["dtype"] == "bfloat16" else "f"
     return f"flash_fwd_kernelI{elem}Li{hd}E"
@@ -2652,6 +2696,7 @@ LLAMA4_LAYERS, LLAMA4_BATCH = 8, 2   # 48 layers hold ~212 GB of bf16
 WHISPER_LEN = 448                    # whisper's decoder positions
 FAMILY_DECODE_STEPS = 16
 PHI4_PROMPT, PHI4_DECODE = 1024, 64
+MLA_LEN = 32768      # DeepSeek-V2-Lite's benchmark prompt (10a only)
 # One full-width MoE layer (granite, bf16) against a plain loop over the
 # experts that takes the same routing decisions, as max|port - plain| /
 # max|plain|. Both round each expert product to bf16 (cuBLAS, in batched
@@ -2665,8 +2710,11 @@ def family_flash_cases() -> list:
     """10a's cases: every shape at which 10b-10f call flash, read from
     the configs and the batch and lengths those phases use, then two
     that no path runs: hd 96 in float32, and a ragged key length in
-    float32."""
+    float32; last DeepSeek-V2-Lite's latent attention at the benchmark
+    cell's one 32,768-token prompt (qk 192, v 128, the YaRN scale),
+    which no phase serves."""
     from repro_torch.configs import get_config
+    from repro_torch.models.layers import mla_softmax_scale
 
     def attn(arch, B, S, dtype="bfloat16", causal=True, Skv=None):
         c = get_config(arch)
@@ -2675,6 +2723,7 @@ def family_flash_cases() -> list:
         return case if Skv is None else {**case, "Skv": Skv}
 
     frames = get_config("whisper_medium").num_source_positions
+    ds = get_config("deepseek-v2-lite")
     phi3 = attn("phi3_vision_4b", FAMILY_BATCH, FAMILY_LEN)
     cross = attn("whisper_medium", FAMILY_BATCH, WHISPER_LEN, causal=False,
                  Skv=frames)
@@ -2690,26 +2739,36 @@ def family_flash_cases() -> list:
         attn("phi4_mini_3b", 1, PHI4_PROMPT + PHI4_DECODE, "float32"),
         {**phi3, "dtype": "float32"},
         {**cross, "Skv": frames - 1, "dtype": "float32"},
+        {**attn("deepseek-v2-lite", 1, MLA_LEN),
+         "hd": ds.mla.qk_head_dim, "hd_v": ds.mla.v_head_dim,
+         "scale": mla_softmax_scale(ds)},
     ]
 
 
 def phase_family_kernels(torch, ptxas: dict) -> list:
     """10a: flash at the new families' shapes against its plain
-    version; at phi3-vision's hd 96 in bf16 (wgmma, 32-column boxes) the
-    one-bf16-P control too, and no spill."""
+    version; at phi3-vision's hd 96 in bf16 (wgmma, 32-column boxes) and
+    at latent attention's qk 192 / v 128 (``flash_mla_kernel``, one
+    launch of it and of no other kernel) the one-bf16-P control too, and
+    no spill."""
     g = torch.Generator(device=DEVICE)
     g.manual_seed(10)
     rows = []
     for case in family_flash_cases():
+        mla = "hd_v" in case
         hd96 = case["hd"] == 96 and case["dtype"] == "bfloat16"
-        rows.append({**flash_case(torch, case, g, control=hd96), **ptxas_of(
-            ptxas, "flash_attention", flash_tag(case))})
+        rows.append({**flash_case(torch, case, g, control=hd96 or mla),
+                     **ptxas_of(ptxas, "flash_attention", flash_tag(case))})
         log("kernel " + json.dumps(rows[-1]))
-        expect(rows[-1]["kernel"] == ("simt" if case["dtype"] == "float32"
-                                      else "wgmma"), "flash kernel", case)
-        if hd96:
-            expect(rows[-1]["spill_bytes"] == 0, "flash_wgmma_kernel<96> "
+        want = ("mla" if mla else "simt" if case["dtype"] == "float32"
+                else "wgmma")
+        expect(rows[-1]["kernel"] == want, "flash kernel", case)
+        if hd96 or mla:
+            expect(rows[-1]["spill_bytes"] == 0, f"{flash_tag(case)} "
                    "spills", rows[-1]["registers"], rows[-1]["spill_bytes"])
+        if mla:
+            expect(rows[-1]["launches_by_kernel"]["mla"] == 1,
+                   "flash_mla_kernel launches", rows[-1]["launches_by_kernel"])
     return rows
 
 
@@ -4532,6 +4591,15 @@ def main() -> int:
                 "control_one_bf16_p")}
             extra["hd96"]["float32"] = {k: simt96[k] for k in (
                 "ms", "device_ms", "library_ms", "bound_ms", "kernel")}
+            # DeepSeek-V2-Lite's latent attention, qk 192 / v 128
+            mla = next(r for r in family_rows if r.get("hd_v") == 128)
+            extra["mla"] = {k: mla[k] for k in (
+                "ms", "kernel_only_ms", "device_ms", "plain_ms",
+                "library_ms", "bound_ms", "bound_by", "max_abs_err",
+                "kernel", "registers", "spill_bytes", "launches_by_kernel",
+                "control_one_bf16_p", "scale")}
+            extra["mla"]["shape"] = json.dumps(
+                {k: mla[k] for k in ("B", "H", "K", "S", "hd", "hd_v")})
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],

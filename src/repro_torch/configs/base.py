@@ -14,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal, Mapping
 
-BlockKind = Literal["attn", "local", "rglru", "mlstm", "slstm"]
+BlockKind = Literal["attn", "local", "rglru", "mlstm", "slstm", "mla"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,6 +25,37 @@ class MoEConfig:
     capacity_factor: float = 1.25
     group_size: int = 512          # GShard-style routing group
     router_dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V2) with YaRN RoPE.
+
+    Keys and values come from a ``kv_lora_rank`` latent, RMS-normed, and
+    one ``qk_rope_head_dim`` RoPE key shared by all heads; a head's
+    query and key are ``qk_nope_head_dim + qk_rope_head_dim`` wide, its
+    value ``v_head_dim``. The ``rope_*`` keys are YaRN's
+    (``rope_scaling`` of the published config). YaRN's cos/sin
+    multiplier, ``mscale / mscale_all_dim``, is 1 where the two are
+    equal, as DeepSeek-V2 states them; the port takes no other."""
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+    rope_factor: float
+    rope_original_max_position: int
+    rope_beta_fast: float
+    rope_beta_slow: float
+    rope_mscale: float
+    rope_mscale_all_dim: float
+
+    def __post_init__(self):
+        assert self.rope_mscale == self.rope_mscale_all_dim, (
+            "YaRN's cos/sin multiplier must be 1: mscale == mscale_all_dim")
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +72,19 @@ class ModelConfig:
     block_pattern: tuple[BlockKind, ...] = ("attn",)
     local_window: int = 2048
     moe: MoEConfig | None = None
+    # latent attention, the mixer of "mla" blocks
+    mla: MLAConfig | None = None
+    # the first layers take a dense MLP of width dense_d_ff (None: d_ff)
+    # where the others route (DeepSeek's first_k_dense_replace)
+    first_dense_layers: int = 0
+    dense_d_ff: int | None = None
+    # of the mixture of experts (ModelConfig's, so that MoEConfig keeps
+    # the fields repro's has): the shared expert's width (DeepSeek's
+    # n_shared_experts x expert width; None: d_ff, one expert's), and
+    # whether the kept gates are renormalized to sum to 1 (False keeps
+    # the router's probabilities, DeepSeek-V2's norm_topk_prob)
+    shared_d_ff: int | None = None
+    norm_topk_prob: bool = True
     # encoder-decoder (audio) / early-fusion (vlm) frontends are STUBS:
     # input_specs() provides precomputed frame/patch embeddings.
     encoder_layers: int = 0
@@ -68,6 +112,8 @@ class ModelConfig:
         assert self.num_heads % self.num_kv_heads == 0, (
             f"{self.name}: num_heads {self.num_heads} not a multiple of "
             f"kv heads {self.num_kv_heads}")
+        assert ("mla" in self.block_pattern) == (self.mla is not None), (
+            f"{self.name}: mla blocks and an MLA config go together")
 
     # ---- derived ------------------------------------------------------
     @property
@@ -99,24 +145,34 @@ class ModelConfig:
     @property
     def sub_quadratic(self) -> bool:
         """True if no block attends globally (long-context capable)."""
-        return all(k != "attn" for k in self.block_pattern)
+        return all(k not in ("attn", "mla") for k in self.block_pattern)
+
+    def _mlp_params(self, f: int) -> int:
+        return (3 if self.act == "swiglu" else 2) * self.d_model * f
+
+    def routed(self, layer: int) -> bool:
+        """Whether layer ``layer``'s FFN is the mixture of experts."""
+        return self.moe is not None and layer >= self.first_dense_layers
 
     def num_params(self) -> int:
-        """Analytic parameter count (embedding + blocks + head)."""
+        """Analytic parameter count (embedding + blocks + head; the
+        final norm and the vocabulary's padding are not counted)."""
         d, f, hd = self.d_model, self.d_ff, self.head_dim
         H, K = self.num_heads, self.num_kv_heads
-        per_layer = {}
         attn = d * (H * hd) + 2 * d * (K * hd) + (H * hd) * d
-        if self.act == "swiglu":
-            mlp = 3 * d * f
-        else:
-            mlp = 2 * d * f
+        mlp = self._mlp_params(f)
         norms = 2 * d
         total = 0
         for i in range(self.num_layers):
             kind = self.block_pattern[i % self.pattern_len]
             if kind in ("attn", "local"):
                 blk = attn + norms
+            elif kind == "mla":
+                a = self.mla
+                r = a.kv_lora_rank
+                blk = (d * H * a.qk_head_dim + d * (r + a.qk_rope_head_dim)
+                       + r + r * H * (a.qk_nope_head_dim + a.v_head_dim)
+                       + H * a.v_head_dim * d + norms)
             elif kind == "rglru":
                 # lru: in/out proj (2*d*d) + gates (2*d*d) + conv
                 blk = 4 * d * d + self.conv_kernel * d + norms
@@ -126,11 +182,13 @@ class ModelConfig:
                 blk = 4 * d * d + 4 * d + norms
             else:  # pragma: no cover
                 raise ValueError(kind)
-            if self.moe is not None and f > 0:
-                n_ffn = self.moe.num_experts + int(self.moe.shared_expert)
-                blk += n_ffn * mlp + d * self.moe.num_experts  # + router
+            if self.routed(i) and f > 0:
+                m = self.moe
+                blk += m.num_experts * mlp + d * m.num_experts  # + router
+                if m.shared_expert:
+                    blk += self._mlp_params(self.shared_d_ff or f)
             elif f > 0:
-                blk += mlp
+                blk += self._mlp_params(self.dense_d_ff or f)
             total += blk
         total += self.vocab_size * d  # embed
         if not self.tie_embeddings:
@@ -146,10 +204,9 @@ class ModelConfig:
         if self.moe is None:
             return self.num_params()
         full = self.num_params()
-        f = self.d_ff
-        mlp = (3 if self.act == "swiglu" else 2) * self.d_model * f
         inactive = (self.moe.num_experts - self.moe.experts_per_token)
-        return full - self.num_layers * inactive * mlp
+        routed = sum(map(self.routed, range(self.num_layers)))
+        return full - routed * inactive * self._mlp_params(self.d_ff)
 
 
 @dataclasses.dataclass(frozen=True)

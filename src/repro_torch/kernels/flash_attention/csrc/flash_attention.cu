@@ -6,12 +6,15 @@
 //     (bf16 at hd 64, 96, 128, 256: wgmma and TMA, below) and
 //     repro_flash_attention (float32 at every hd, bf16 at hd 16 and 32:
 //     the float32 FMA units, described first). kernel.py picks one
-//     through an explicit table.
+//     through an explicit table. repro_flash_attention_wgmma also takes
+//     latent attention's head dims (q and k 192, v 128), in a kernel of
+//     its own name, flash_mla_kernel, which repro does not have.
 //
 // What it computes: for q (B, H, Sq, hd) and k, v (B, K, Skv, hd) with
-// K | H, out[b, h, i] = softmax_j(q_i . k_j / sqrt(hd), masked) v_j over the
+// K | H, out[b, h, i] = softmax_j(scale q_i . k_j, masked) v_j over the
 // keys of kv head h / (H / K), where the mask keeps j < Skv, j <= i if
-// causal, and i - j < window if a window is given. Scores that the mask
+// causal, and i - j < window if a window is given; the caller passes the
+// scale (1 / sqrt(hd) unless the model states another). Scores that the mask
 // drops are the finite -1e30, never -inf, so m_old - m_new is never NaN;
 // the final divide is by max(l, 1e-30). Output in q's dtype.
 //
@@ -316,9 +319,14 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int
 // for the swizzle's alignment: 193 KB at hd 256, 73 KB at hd 96 (where a
 // third stage was no faster at phi3-vision's prefill shape: PERF.md).
 //
-// Bound on the H100: operations, 4 hd flops per live (query, key) pair
-// at the bf16 tensor-core peak (989 TFLOP/s); with the split P the
-// kernel does 6 hd (P V twice).
+// Latent attention (flash_mla_kernel) reads q and k 192 wide and v 128:
+// the body is the same, with Q and K in three 64-column boxes (twelve k16
+// steps of Q K^T) and V in two (one m64n128k16 per 16 keys); nothing is
+// padded to 256. Shared memory 129 KB.
+//
+// Bound on the H100: operations, 2 (hd + hd_v) flops per live (query, key)
+// pair (4 hd at one head dim) at the bf16 tensor-core peak (989 TFLOP/s);
+// with the split P the kernel does 2 hd + 4 hd_v (P V twice).
 // ---------------------------------------------------------------------------
 
 constexpr int kWBQ = 128;          // queries per CTA (2 consumer warpgroups x 64)
@@ -326,23 +334,33 @@ constexpr int kWBK = 64;           // keys per kv tile
 constexpr int kWThreads = 384;     // producer + 2 consumer warpgroups
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int HD>
-struct WSmem {
+// The TMA boxes of a tile D columns wide.
+template <int D>
+struct WBox {
   // columns per TMA box: a box row is one span of the swizzle, 128 bytes
-  // where 64 columns tile hd, else 64 bytes (hd 96)
-  static constexpr int kBox = HD % 64 == 0 ? 64 : 32;
+  // where 64 columns tile D, else 64 bytes (hd 96)
+  static constexpr int kBox = D % 64 == 0 ? 64 : 32;
   static constexpr uint32_t kRowBytes = 2 * kBox;
   // wgmma's layout type (1: the 128-byte swizzle, 2: the 64-byte) and its
   // stride byte offset: 8 box rows, one repeat of the swizzle
   static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;
   static constexpr uint32_t kGroup = 8 * kRowBytes;
-  static constexpr int kBoxes = HD / kBox;
-  static constexpr int kQBox = kWBQ * kBox;           // elements per Q box
-  static constexpr int kKVBox = kWBK * kBox;          // elements per K/V box
-  static constexpr int kQ = kBoxes * kQBox;           // Q tile elements
-  static constexpr int kKV = kBoxes * kKVBox;         // K (or V) tile elements
-  static constexpr size_t kBytes = 2 * (static_cast<size_t>(kQ) + 4 * kKV) + 1024;
-  static_assert(HD % kBox == 0, "a tile is whole boxes");
+  static constexpr int kBoxes = D / kBox;
+  static_assert(D % kBox == 0, "a tile is whole boxes");
+};
+
+// Shared memory of q and k QK wide and v VD wide.
+template <int QK, int VD>
+struct WSmem {
+  using A = WBox<QK>;                                // Q and K
+  using V = WBox<VD>;
+  static constexpr int kQBox = kWBQ * A::kBox;       // elements per Q box
+  static constexpr int kKBox = kWBK * A::kBox;       // elements per K box
+  static constexpr int kVBox = kWBK * V::kBox;       // elements per V box
+  static constexpr int kQ = A::kBoxes * kQBox;       // Q tile elements
+  static constexpr int kK = A::kBoxes * kKBox;       // K tile elements
+  static constexpr int kV = V::kBoxes * kVBox;       // V tile elements
+  static constexpr size_t kBytes = 2 * (static_cast<size_t>(kQ) + 2 * kK + 2 * kV) + 1024;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -481,18 +499,22 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kWThreads, 1)
-flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                   const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out, int H,
-                   int K, int sq, int skv, int causal, int window, float scale_log2) {
-  using L = WSmem<HD>;
+// The body of both wgmma kernels: q and k QK wide, v and the output VD.
+template <int QK, int VD>
+__device__ __forceinline__ void flash_wgmma_body(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                                                 const CUtensorMap& tm_v,
+                                                 __nv_bfloat16* __restrict__ out, int H, int K,
+                                                 int sq, int skv, int causal, int window,
+                                                 float scale_log2) {
+  using L = WSmem<QK, VD>;
+  using A = typename L::A;
+  using Vb = typename L::V;
   extern __shared__ uint8_t w_raw[];
   __shared__ __align__(8) uint64_t q_full, k_full[2], v_full[2], kv_empty[2];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(
       (reinterpret_cast<uintptr_t>(w_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   __nv_bfloat16* Ks = Qs + L::kQ;      // [stage][box][64 rows][kBox]
-  __nv_bfloat16* Vs = Ks + 2 * L::kKV;
+  __nv_bfloat16* Vs = Ks + 2 * L::kK;
 
   const int h = blockIdx.x;
   const int b = blockIdx.z;
@@ -530,18 +552,18 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (tid == 0) {
       mbar_expect_tx(&q_full, L::kQ * 2);
-      for (int bx = 0; bx < L::kBoxes; ++bx)
-        tma_load(Qs + bx * L::kQBox, &tm_q, &q_full, bx * L::kBox, q0, bh);
+      for (int bx = 0; bx < A::kBoxes; ++bx)
+        tma_load(Qs + bx * L::kQBox, &tm_q, &q_full, bx * A::kBox, q0, bh);
       for (int i = 0; i < n_kt; ++i) {
         const int st = i & 1;
         mbar_wait(&kv_empty[st], ((i >> 1) & 1) ^ 1);
         const int k0 = (kt_begin + i) * kWBK;
-        mbar_expect_tx(&k_full[st], L::kKV * 2);
-        for (int bx = 0; bx < L::kBoxes; ++bx)
-          tma_load(Ks + st * L::kKV + bx * L::kKVBox, &tm_k, &k_full[st], bx * L::kBox, k0, kvp);
-        mbar_expect_tx(&v_full[st], L::kKV * 2);
-        for (int bx = 0; bx < L::kBoxes; ++bx)
-          tma_load(Vs + st * L::kKV + bx * L::kKVBox, &tm_v, &v_full[st], bx * L::kBox, k0, kvp);
+        mbar_expect_tx(&k_full[st], L::kK * 2);
+        for (int bx = 0; bx < A::kBoxes; ++bx)
+          tma_load(Ks + st * L::kK + bx * L::kKBox, &tm_k, &k_full[st], bx * A::kBox, k0, kvp);
+        mbar_expect_tx(&v_full[st], L::kV * 2);
+        for (int bx = 0; bx < Vb::kBoxes; ++bx)
+          tma_load(Vs + st * L::kV + bx * L::kVBox, &tm_v, &v_full[st], bx * Vb::kBox, k0, kvp);
       }
     }
   } else {
@@ -555,22 +577,22 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
     const int qa = q0 + wg * 64;              // the warpgroup's first query
     const int qi0 = qa + r0, qi1 = qi0 + 8;
 
-    float o[HD / 2];
+    float o[VD / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < VD / 2; ++i) o[i] = 0.f;
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
-    const uint32_t q_base = smem_addr(Qs) + wg * 64 * L::kRowBytes;
+    const uint32_t q_base = smem_addr(Qs) + wg * 64 * A::kRowBytes;
     mbar_wait(&q_full, 0);
 
     for (int i = 0; i < n_kt; ++i) {
       const int st = i & 1;
       const int par = (i >> 1) & 1;
       const int k0 = (kt_begin + i) * kWBK;
-      const uint32_t k_base = smem_addr(Ks + st * L::kKV);
-      const uint32_t v_base = smem_addr(Vs + st * L::kKV);
+      const uint32_t k_base = smem_addr(Ks + st * L::kK);
+      const uint32_t v_base = smem_addr(Vs + st * L::kV);
 
-      // S = Q K^T: hd/16 steps of k16; within a box a step moves the
+      // S = Q K^T: QK/16 steps of k16; within a box a step moves the
       // start by 32 bytes (kBox / 16 steps a box), a box by its size
       float s[32];
 #pragma unroll
@@ -578,11 +600,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
       mbar_wait(&k_full[st], par);
       wgmma_fence();
 #pragma unroll
-      for (int d = 0; d < HD / 16; ++d) {
-        const uint32_t bx = d / (L::kBox / 16), kk = d % (L::kBox / 16);
+      for (int d = 0; d < QK / 16; ++d) {
+        const uint32_t bx = d / (A::kBox / 16), kk = d % (A::kBox / 16);
         wgmma_ss_n64(s,
-                     wgmma_desc(q_base + bx * (L::kQBox * 2) + kk * 32, 16, L::kGroup, L::kLayout),
-                     wgmma_desc(k_base + bx * (L::kKVBox * 2) + kk * 32, 16, L::kGroup, L::kLayout),
+                     wgmma_desc(q_base + bx * (L::kQBox * 2) + kk * 32, 16, A::kGroup, A::kLayout),
+                     wgmma_desc(k_base + bx * (L::kKBox * 2) + kk * 32, 16, A::kGroup, A::kLayout),
                      d > 0);
       }
       wgmma_commit();
@@ -638,7 +660,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
       l0 = l0 * al0 + ls0;   // the row sums are reduced once, at the end
       l1 = l1 * al1 + ls1;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
+      for (int j = 0; j < VD / 8; ++j) {
         o[4 * j] *= al0;
         o[4 * j + 1] *= al0;
         o[4 * j + 2] *= al1;
@@ -648,17 +670,17 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
       // O += P V: 4 steps of 16 keys; A = P from registers in the
       // accumulator's layout (keys 16 ks .. 16 ks + 15 are S's column
       // groups 2 ks and 2 ks + 1), B = V rows 16 ks .. (16 box rows a
-      // step), its boxes L::kKVBox * 2 bytes apart
+      // step), its boxes L::kVBox * 2 bytes apart
       mbar_wait(&v_full[st], par);
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks) {
         const uint64_t dv =
-            wgmma_desc(v_base + ks * 16 * L::kRowBytes, L::kKVBox * 2, L::kGroup, L::kLayout);
+            wgmma_desc(v_base + ks * 16 * Vb::kRowBytes, L::kVBox * 2, Vb::kGroup, Vb::kLayout);
         const uint32_t ah[4] = {ph[4 * ks], ph[4 * ks + 1], ph[4 * ks + 2], ph[4 * ks + 3]};
         const uint32_t al[4] = {pl[4 * ks], pl[4 * ks + 1], pl[4 * ks + 2], pl[4 * ks + 3]};
-        wgmma_pv<HD>(o, ah, dv);
-        wgmma_pv<HD>(o, al, dv);
+        wgmma_pv<VD>(o, ah, dv);
+        wgmma_pv<VD>(o, al, dv);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -671,18 +693,38 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
     const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
-    __nv_bfloat16* op = out + static_cast<size_t>(bh) * sq * HD;
+    __nv_bfloat16* op = out + static_cast<size_t>(bh) * sq * VD;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < VD / 8; ++j) {
       const int c = 8 * j + c0;
       if (qi0 < sq)
-        *reinterpret_cast<__nv_bfloat162*>(op + static_cast<size_t>(qi0) * HD + c) =
+        *reinterpret_cast<__nv_bfloat162*>(op + static_cast<size_t>(qi0) * VD + c) =
             __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
       if (qi1 < sq)
-        *reinterpret_cast<__nv_bfloat162*>(op + static_cast<size_t>(qi1) * HD + c) =
+        *reinterpret_cast<__nv_bfloat162*>(op + static_cast<size_t>(qi1) * VD + c) =
             __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
     }
   }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kWThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out, int H,
+                   int K, int sq, int skv, int causal, int window, float scale_log2) {
+  flash_wgmma_body<HD, HD>(tm_q, tm_k, tm_v, out, H, K, sq, skv, causal, window, scale_log2);
+}
+
+// latent attention: q and k 192 wide (128 + 64 RoPE), v 128
+constexpr int kMlaQK = 192;
+constexpr int kMlaV = 128;
+
+__global__ void __launch_bounds__(kWThreads, 1)
+flash_mla_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out, int H,
+                 int K, int sq, int skv, int causal, int window, float scale_log2) {
+  flash_wgmma_body<kMlaQK, kMlaV>(tm_q, tm_k, tm_v, out, H, K, sq, skv, causal, window,
+                                  scale_log2);
 }
 
 // cuTensorMapEncodeTiled, found through the runtime (no libcuda at link time)
@@ -707,12 +749,12 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (planes, rows, HD) bf16 tensor as a 3-D map of boxes (WSmem<HD>::kBox
+// A (planes, rows, D) bf16 tensor as a 3-D map of boxes (WBox<D>::kBox
 // columns, box_rows, 1) under the swizzle of that box width.
-template <int HD>
+template <int D>
 bool make_map(CUtensorMap* map, const void* base, int planes, int rows, int box_rows) {
-  using L = WSmem<HD>;
-  constexpr int hd = HD;
+  using L = WBox<D>;
+  constexpr int hd = D;
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(rows),
@@ -729,17 +771,17 @@ bool make_map(CUtensorMap* map, const void* base, int planes, int rows, int box_
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
-cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int H, int K,
-                         int sq, int skv, int causal, int window, float scale,
+// kern, one of the wgmma kernels, over q and k QK wide and v VD wide
+template <int QK, int VD, typename Kernel>
+cudaError_t launch_tiles(Kernel kern, const void* q, const void* k, const void* v, void* out, int B,
+                         int H, int K, int sq, int skv, int causal, int window, float scale,
                          cudaStream_t stream) {
-  constexpr size_t smem = WSmem<HD>::kBytes;
+  constexpr size_t smem = WSmem<QK, VD>::kBytes;
   static_assert(smem <= 232448 - 64, "shared memory over the H100's 227 KB per block");
   CUtensorMap tq, tk, tv;
-  if (!make_map<HD>(&tq, q, B * H, sq, kWBQ) || !make_map<HD>(&tk, k, B * K, skv, kWBK) ||
-      !make_map<HD>(&tv, v, B * K, skv, kWBK))
+  if (!make_map<QK>(&tq, q, B * H, sq, kWBQ) || !make_map<QK>(&tk, k, B * K, skv, kWBK) ||
+      !make_map<VD>(&tv, v, B * K, skv, kWBK))
     return cudaErrorInvalidValue;
-  auto kern = flash_wgmma_kernel<HD>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -749,9 +791,21 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+template <int HD>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int H, int K,
+                         int sq, int skv, int causal, int window, float scale,
+                         cudaStream_t stream) {
+  return launch_tiles<HD, HD>(flash_wgmma_kernel<HD>, q, k, v, out, B, H, K, sq, skv, causal,
+                              window, scale, stream);
+}
+
 cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int H,
-                           int K, int sq, int skv, int hd, int causal, int window, float scale,
-                           cudaStream_t st) {
+                           int K, int sq, int skv, int hd, int hd_v, int causal, int window,
+                           float scale, cudaStream_t st) {
+  if (hd == kMlaQK && hd_v == kMlaV)
+    return launch_tiles<kMlaQK, kMlaV>(flash_mla_kernel, q, k, v, out, B, H, K, sq, skv, causal,
+                                       window, scale, st);
+  if (hd_v != hd) return cudaErrorInvalidValue;
   switch (hd) {
     case 64: return launch_wgmma<64>(q, k, v, out, B, H, K, sq, skv, causal, window, scale, st);
     case 96: return launch_wgmma<96>(q, k, v, out, B, H, K, sq, skv, causal, window, scale, st);
@@ -788,15 +842,17 @@ int repro_flash_attention(const void* q, const void* k, const void* v, void* out
   return static_cast<int>(err);
 }
 
-// The same for bfloat16 at hd in {64, 96, 128, 256}, on wgmma and TMA.
+// The same for bfloat16 at hd in {64, 96, 128, 256}, on wgmma and TMA; v
+// and out are hd_v wide, which equals hd except at latent attention's
+// (hd 192, hd_v 128).
 int repro_flash_attention_wgmma(const void* q, const void* k, const void* v, void* out, int B,
-                                int H, int K, int sq, int skv, int hd, int causal, int window,
-                                float scale, void* stream) {
+                                int H, int K, int sq, int skv, int hd, int hd_v, int causal,
+                                int window, float scale, void* stream) {
   if (sq <= 0 || B <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
   if (K <= 0 || H % K != 0 || skv <= 0 || (sq + kWBQ - 1) / kWBQ > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(dispatch_wgmma(q, k, v, out, B, H, K, sq, skv, hd, causal, window, scale,
-                                         static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(dispatch_wgmma(q, k, v, out, B, H, K, sq, skv, hd, hd_v, causal, window,
+                                         scale, static_cast<cudaStream_t>(stream)));
 }
 
 const char* repro_flash_attention_error_string(int code) {

@@ -4,7 +4,9 @@ The counterpart of ``repro/kernels/flash_attention/ref.py``: the whole
 score matrix at once, in float32, masked with the finite ``-1e30`` (so a
 row that sees no key never turns into NaN), softmax, and the output cast
 back to q's dtype. k/v may have fewer heads than q (GQA): query head
-``h`` reads kv head ``h // (H // K)``.
+``h`` reads kv head ``h // (H // K)``. v's head dim may differ from q's
+and k's (latent attention's qk 192 / v 128), and ``scale`` replaces the
+default ``1/sqrt(hd)`` of q's head dim.
 
 A CPU tensor takes this path (``ops.py``), the tests hold it against the
 JAX functions, and ``chip_smoke.py`` holds the CUDA kernel against it on
@@ -42,11 +44,17 @@ def band_mask(sq: int, skv: int, *, causal: bool, window: int | None,
     return mask
 
 
+def _scores(q, k, scale):
+    """q k^T / sqrt(hd), or times ``scale`` where one is given."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k)
+    return s / math.sqrt(q.shape[-1]) if scale is None else s * scale
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True,
-                        window: int | None = None) -> torch.Tensor:
-    """q: (B, H, Sq, hd); k, v: (B, K, Skv, hd) with K | H. float32 math,
-    output in q's dtype."""
+                        *, causal: bool = True, window: int | None = None,
+                        scale: float | None = None) -> torch.Tensor:
+    """q: (B, H, Sq, hd); k: (B, K, Skv, hd), v: (B, K, Skv, hd_v) with
+    K | H. float32 math; output (B, H, Sq, hd_v) in q's dtype."""
     H, K = q.shape[1], k.shape[1]
     if H % K:
         raise ValueError(f"{H} query heads are not a multiple of {K} kv "
@@ -54,8 +62,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if K != H:
         k = k.repeat_interleave(H // K, dim=1)
         v = v.repeat_interleave(H // K, dim=1)
-    sq, skv, hd = q.shape[2], k.shape[2], q.shape[3]
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(hd)
+    sq, skv = q.shape[2], k.shape[2]
+    s = _scores(q.float(), k.float(), scale)
     mask = band_mask(sq, skv, causal=causal, window=window, device=q.device)
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
@@ -63,7 +71,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_bwd_ref(q, k, v, out, dout, *, causal: bool = True,
-                            window: int | None = None, block_q: int = 512):
+                            window: int | None = None,
+                            scale: float | None = None, block_q: int = 512):
     """(dq, dk, dv) of attention at (q, k, v) against ``dout``, in float32
     math, each in its input's dtype. ``out`` is the forward's output:
     its row sums ``delta = sum(dout * out)`` correct the softmax's
@@ -75,7 +84,7 @@ def flash_attention_bwd_ref(q, k, v, out, dout, *, causal: bool = True,
         raise ValueError(f"{H} query heads are not a multiple of {K} kv "
                          f"heads")
     rep = H // K
-    scale = 1.0 / math.sqrt(hd)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
     qf, do = q.float(), dout.float()
     kf = k.float().repeat_interleave(rep, dim=1)
     vf = v.float().repeat_interleave(rep, dim=1)
@@ -94,5 +103,5 @@ def flash_attention_bwd_ref(q, k, v, out, dout, *, causal: bool = True,
         dk += torch.einsum("bhqk,bhqd->bhkd", ds, qf[:, :, rows])
     if rep > 1:
         dk = dk.view(B, K, rep, skv, hd).sum(2)
-        dv = dv.view(B, K, rep, skv, hd).sum(2)
+        dv = dv.view(B, K, rep, skv, v.shape[3]).sum(2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

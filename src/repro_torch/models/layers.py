@@ -19,6 +19,12 @@ kernels (:func:`repro_torch.kernels.decode_attention.ops.
 decode_attention`), which read the cache's live slots only, with
 ``repro``'s arithmetic.
 
+Multi-head latent attention (DeepSeek-V2; ``repro`` has none) is
+:class:`MLA`, :func:`mla_forward`, :func:`mla_decode` and
+:func:`mla_cache_init`: its prefill goes through the flash kernel at
+qk 192 / v 128 and hands a latent cache entry on; its decode reads that
+latent cache in the absorbed form.
+
 Dtypes follow ``repro``: activations in ``cfg.dtype``; a product of a
 tensor with a parameter of another dtype is taken in the promoted dtype,
 as JAX promotes; norms, RoPE and softmax in float32; logits from
@@ -27,6 +33,7 @@ computed here by upcasting before the product.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Mapping
 
@@ -40,11 +47,13 @@ from repro_torch.distributed.sharding import (gather_inner, gather_inner_grad,
                                               split_last, write_slot)
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.obs import get_recorder
 
 __all__ = ["NEG_INF", "ParamModule", "mm", "rmsnorm", "rope",
            "full_attention", "attention_params", "attention_forward",
-           "attention_decode", "attention_cache_init", "mlp_params",
-           "mlp_forward"]
+           "attention_decode", "attention_cache_init", "MLA", "yarn_inv_freq",
+           "mla_softmax_scale", "rope_yarn", "mla_forward", "mla_decode",
+           "mla_cache_init", "mlp_params", "mlp_forward"]
 
 NEG_INF = -1e30
 Params = Mapping[str, Any]
@@ -305,11 +314,217 @@ def attention_cache_init(cfg: ModelConfig, batch: int, max_len: int,
 
 
 # ---------------------------------------------------------------------------
+# multi-head latent attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+class MLA(ParamModule):
+    """The latent mixer's parameters: ``wq`` (d, H·(nope + rope)), no q
+    LoRA; ``wkv_a`` (d, r + rope), the joint down-projection to the
+    latent and the shared RoPE key; ``kv_norm.scale`` (r,) float32, the
+    latent's RMSNorm; ``wkv_b`` (r, H·(nope + v)), the up-projection to
+    each head's key and value; ``wo`` (H·v, d)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        a, d, H = cfg.mla, cfg.d_model, cfg.num_heads
+        r = a.kv_lora_rank
+        dt = getattr(torch, cfg.param_dtype)
+        super().__init__({
+            "wq": dense_spec((d, H * a.qk_head_dim), dt),
+            "wkv_a": dense_spec((d, r + a.qk_rope_head_dim), dt),
+            "wkv_b": dense_spec((r, H * (a.qk_nope_head_dim + a.v_head_dim)),
+                                dt),
+            "wo": dense_spec((H * a.v_head_dim, d), dt)}, device)
+        self.kv_norm = ParamModule({"scale": ((r,), torch.float32, "ones")},
+                                   device)
+
+
+def _yarn_mscale(factor: float, mscale: float) -> float:
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_inv_freq(cfg: ModelConfig, device=None) -> torch.Tensor:
+    """The YaRN frequencies of the RoPE dims, (rope / 2,) float64:
+    ``f_extra = theta^(-2i/rope)`` where a dim turns often within the
+    original context, ``f_extra / factor`` where it turns less than
+    once, and a linear ramp between the correction dims that
+    ``beta_fast`` and ``beta_slow`` rotations give (10 and 23 at
+    DeepSeek-V2-Lite's sizes). Made once per device and kept: the
+    caller must not write into it."""
+    a = cfg.mla
+    return _yarn_inv_freq(a.qk_rope_head_dim, cfg.rope_theta, a.rope_factor,
+                          a.rope_original_max_position, a.rope_beta_fast,
+                          a.rope_beta_slow,
+                          None if device is None else torch.device(device))
+
+
+@functools.lru_cache(maxsize=16)
+def _yarn_inv_freq(dim: int, base: float, factor: float, original: int,
+                   beta_fast: float, beta_slow: float, device):
+    def corr(rot):
+        return (dim * math.log(original / (rot * 2 * math.pi))
+                / (2 * math.log(base)))
+    with torch.inference_mode(False), torch.no_grad():
+        extra = base ** (-torch.arange(0, dim, 2, dtype=torch.float64,
+                                       device=device) / dim)
+        lo = max(math.floor(corr(beta_fast)), 0)
+        hi = min(math.ceil(corr(beta_slow)), dim - 1)
+        hi = hi + 0.001 if lo == hi else hi
+        ramp = ((torch.arange(dim // 2, dtype=torch.float64, device=device)
+                 - lo) / (hi - lo)).clamp(0, 1)
+        keep = 1 - ramp
+        return extra / factor * (1 - keep) + extra * keep
+
+
+def mla_softmax_scale(cfg: ModelConfig) -> float:
+    """``qk_head_dim^-1/2``, times YaRN's ``mscale_all_dim`` factor
+    squared: 0.114721 at DeepSeek-V2-Lite's sizes."""
+    a = cfg.mla
+    return (a.qk_head_dim ** -0.5
+            * _yarn_mscale(a.rope_factor, a.rope_mscale_all_dim) ** 2)
+
+
+def rope_yarn(x: torch.Tensor, positions: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """x: (B, S, heads, rope); positions: (B, S). The published layout:
+    the rope dims de-interleaved (pairs (2i, 2i+1) to i and rope/2 + i),
+    then the two halves rotated at :func:`yarn_inv_freq`, angles in
+    float64, the product in float32 (YaRN's cos/sin multiplier is 1:
+    ``MLAConfig``)."""
+    return _rotate_yarn(x, *_yarn_cos_sin(positions, cfg, x.device))
+
+
+def _yarn_cos_sin(positions: torch.Tensor, cfg: ModelConfig, device):
+    """The cos and sin of :func:`rope_yarn`'s angles, (B, S, 1, rope /
+    2) each: one table serves a layer's query and key."""
+    angles = (positions[..., None].double()
+              * yarn_inv_freq(cfg, device)).float()          # (B, S, half)
+    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+
+
+def _rotate_yarn(x: torch.Tensor, cos: torch.Tensor,
+                 sin: torch.Tensor) -> torch.Tensor:
+    B, S, heads, dim = x.shape
+    xf = x.float().reshape(B, S, heads, dim // 2, 2)
+    x1, x2 = xf[..., 0], xf[..., 1]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _kv_norm(p: Params, c: torch.Tensor, eps: float) -> torch.Tensor:
+    """The latent's RMSNorm."""
+    return rmsnorm(p["kv_norm"], c, eps)
+
+
+def _mla_project(p: Params, x: torch.Tensor, cfg: ModelConfig, positions):
+    """q_nope (B, S, H, nope), q_pe (B, S, H, rope) after RoPE; the
+    normed latent c (B, S, r); k_pe (B, S, 1, rope) after RoPE."""
+    a = cfg.mla
+    B, S, _ = x.shape
+    H, nope, r = cfg.num_heads, a.qk_nope_head_dim, a.kv_lora_rank
+    q = mm(x, p["wq"]).view(B, S, H, a.qk_head_dim)
+    kv_a = mm(x, p["wkv_a"])
+    c = _kv_norm(p, kv_a[..., :r], cfg.norm_eps)
+    cos, sin = _yarn_cos_sin(positions, cfg, x.device)
+    k_pe = _rotate_yarn(kv_a[..., None, r:], cos, sin)
+    return q[..., :nope], _rotate_yarn(q[..., nope:], cos, sin), c, k_pe
+
+
+def _count_cache(*entry: torch.Tensor) -> None:
+    """``mla.cache_bytes``: the bytes of the cache entry handed on."""
+    rec = get_recorder()
+    if rec.enabled:
+        rec.metrics.counter("mla.cache_bytes").inc(
+            sum(t.numel() * t.element_size() for t in entry))
+
+
+def mla_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                return_kv: bool = False):
+    """Prefill latent attention, causal, through the flash kernel at qk
+    ``nope + rope`` and v ``v_head_dim`` with :func:`mla_softmax_scale`.
+    With ``return_kv``, also the cache entry ``(c, k_pe)``: the normed
+    latent (B, 1, S, r) and the RoPE'd key (B, 1, S, rope)."""
+    a = cfg.mla
+    B, S, _ = x.shape
+    H, nope, vd = cfg.num_heads, a.qk_nope_head_dim, a.v_head_dim
+    rec = get_recorder()
+    with rec.span("mla.project"):
+        positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+        q_nope, q_pe, c, k_pe = _mla_project(p, x, cfg, positions)
+        kv = mm(c, p["wkv_b"]).view(B, S, H, nope + vd)
+        # the kernel's (B, H, S, qk) layout, each part written once
+        q = q_nope.new_empty((B, H, S, a.qk_head_dim))
+        q[..., :nope].copy_(q_nope.transpose(1, 2))
+        q[..., nope:].copy_(q_pe.transpose(1, 2))
+        k = kv.new_empty((B, H, S, a.qk_head_dim))
+        k[..., :nope].copy_(kv[..., :nope].transpose(1, 2))
+        k[..., nope:].copy_(k_pe.transpose(1, 2))  # one RoPE key, all heads
+        v = kv[..., nope:].transpose(1, 2).contiguous()
+    with rec.span("mla.core"):
+        o = flash_attention(q, k, v, causal=True, scale=mla_softmax_scale(cfg))
+    out = mm(o.transpose(1, 2).reshape(B, S, H * vd), p["wo"])
+    if not return_kv:
+        return out
+    entry = (c[:, None], k_pe.transpose(1, 2))
+    _count_cache(*entry)
+    return out, entry
+
+
+def mla_decode(p: Params, x: torch.Tensor, cache: dict, cfg: ModelConfig):
+    """One token against the latent cache ``{"c": (B, 1, Smax, r),
+    "k_pe": (B, 1, Smax, rope), "len": int}``, a ring as
+    :func:`attention_decode`'s (slot = position mod Smax). The new
+    entry is written in place; the core is the absorbed form in float32
+    over the live slots: ``q_lat = q_nope W_uk^T`` (H, r), scores
+    ``q_lat c + q_pe k_pe`` times the scale, ``o = (p c) W_uv``."""
+    a = cfg.mla
+    B = x.shape[0]
+    H, nope, vd, r = (cfg.num_heads, a.qk_nope_head_dim, a.v_head_dim,
+                      a.kv_lora_rank)
+    pos = int(cache["len"])
+    rec = get_recorder()
+    with rec.span("mla.project"):
+        positions = torch.full((B, 1), pos, device=x.device)
+        q_nope, q_pe, c, k_pe = _mla_project(p, x, cfg, positions)
+        cc, ck = cache["c"], cache["k_pe"]
+        smax = cc.shape[2]
+        write_slot(cc, 2, pos % smax, c.to(cc.dtype))
+        write_slot(ck, 2, pos % smax, k_pe[:, :, 0].to(ck.dtype))
+        _count_cache(cc.select(2, pos % smax), ck.select(2, pos % smax))
+    with rec.span("mla.core"):
+        live = min(pos + 1, smax)
+        lat = cc[:, 0, :live].float()                        # (B, T, r)
+        w = p["wkv_b"].float().view(r, H, nope + vd)
+        q_lat = torch.einsum("bhn,rhn->bhr", q_nope[:, 0].float(),
+                             w[..., :nope])
+        s = (torch.einsum("bhr,btr->bht", q_lat, lat)
+             + torch.einsum("bhe,bte->bht", q_pe[:, 0].float(),
+                            ck[:, 0, :live].float()))
+        prob = torch.softmax(s * mla_softmax_scale(cfg), dim=-1)
+        o_lat = torch.einsum("bht,btr->bhr", prob, lat)
+        o = torch.einsum("bhr,rhv->bhv", o_lat, w[..., nope:])
+    out = mm(o.reshape(B, 1, H * vd).to(x.dtype), p["wo"])
+    return out, {"c": cc, "k_pe": ck, "len": pos + 1}
+
+
+def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16, device=None) -> dict:
+    """A latent ring of ``max_len`` slots: ``kv_lora_rank +
+    qk_rope_head_dim`` values a token (576 at DeepSeek-V2-Lite's)."""
+    a = cfg.mla
+    return {"c": torch.zeros(batch, 1, max_len, a.kv_lora_rank, dtype=dtype,
+                             device=device),
+            "k_pe": torch.zeros(batch, 1, max_len, a.qk_rope_head_dim,
+                                dtype=dtype, device=device),
+            "len": 0}
+
+
+# ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
 
-def mlp_params(cfg: ModelConfig) -> dict[str, tuple]:
-    d, f = cfg.d_model, cfg.d_ff
+def mlp_params(cfg: ModelConfig, d_ff: int | None = None) -> dict[str, tuple]:
+    """An MLP of width ``d_ff`` (default ``cfg.d_ff``)."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     dt = getattr(torch, cfg.param_dtype)
     if cfg.act == "swiglu":
         return {"w_gate": dense_spec((d, f), dt),

@@ -5,10 +5,13 @@ The port of ``repro/models/model.py``, for all ten configurations of
 ``cfg.block_pattern`` (cycled over layers) — full attention,
 sliding-window attention, RG-LRU, mLSTM or sLSTM — followed by an FFN
 when ``d_ff > 0``: an MLP, or a mixture of experts (``models/moe.py``)
-when ``cfg.moe`` is set. ``repro`` stacks the parameters of each repeat
-of the pattern and scans over them; the port keeps one module per layer,
-in order, and loops (``convert.params_from_jax`` unstacks ``repro``'s
-parameters into it).
+when ``cfg.moe`` is set, past the ``cfg.first_dense_layers`` leading
+layers, which take an MLP of ``cfg.dense_d_ff``. Beyond ``repro``, an
+``"mla"`` block is multi-head latent attention (DeepSeek-V2,
+``configs/deepseek_v2_lite.py``), whose cache is a latent ring.
+``repro`` stacks the parameters of each repeat of the pattern and scans
+over them; the port keeps one module per layer, in order, and loops
+(``convert.params_from_jax`` unstacks ``repro``'s parameters into it).
 
 The front ends are ``repro``'s stubs. Audio (whisper,
 ``cfg.encoder_layers``): a bidirectional encoder over precomputed frame
@@ -29,17 +32,21 @@ Entry points, as in ``repro``:
   summed over the layers;
 - :meth:`Model.encode` is the audio encoder alone;
 - :meth:`Model.init_cache` and :meth:`Model.decode_step` are one token
-  against per-layer caches.
+  against per-layer caches; :meth:`Model.fill_cache` writes what a
+  prefill hands out (``forward(..., return_kv=True)``) into rows of
+  them.
 
 Under ``obs.tracing()`` the stack records spans (DESIGN.md §14):
 ``model.forward`` and ``model.decode_step`` around the entry points,
 ``model.head`` around the LM head, ``attn.prefill``/``attn.decode``
-around each block's attention, and ``models/moe.py``'s ``moe.route``,
-``moe.dispatch``, ``moe.experts`` and ``moe.combine``. Each is opened at
-the call site, so the module attributes called inside stay looked up at
-each call; with the profiler on, each is also a profiler range. With
-tracing off a span costs one ``get_recorder()`` and the shared no-op
-context, and launches nothing.
+around each block's attention (inside it an MLA block's ``mla.project``
+and ``mla.core``, and the counter ``mla.cache_bytes``, the bytes a
+forward or step hands to its cache), and ``models/moe.py``'s
+``moe.route``, ``moe.dispatch``, ``moe.experts``, ``moe.combine`` and
+``moe.shared``. Each is opened at the call site, so the module
+attributes called inside stay looked up at each call; with the profiler
+on, each is also a profiler range. With tracing off a span costs one
+``get_recorder()`` and the shared no-op context, and launches nothing.
 
 A call builds an autograd graph when grad mode is on, as any module's
 does: the serving callers (``ServeLoop``, ``launch/serve.py``) run under
@@ -93,29 +100,36 @@ def unsupported(cfg: ModelConfig) -> str | None:
     """The block kinds of ``cfg`` that the model has no mixer for, or
     None (every config of ``configs.ARCHS``)."""
     missing = sorted({k for k in cfg.block_pattern
-                      if k not in _ATTN + tuple(_RECURRENT)})
+                      if k not in _ATTN + tuple(_RECURRENT) + ("mla",)})
     return f"{'/'.join(missing)} blocks" if missing else None
 
 
 class Block(nn.Module):
-    """One layer: norm, mixing sublayer (attention, RG-LRU, mLSTM or
-    sLSTM), residual; with an encoder (whisper), norm, cross attention to
-    the encoder's output, residual; then norm, FFN (an MLP or a mixture
-    of experts), residual when ``d_ff > 0``."""
+    """One layer (``index`` in the stack): norm, mixing sublayer
+    (attention, latent attention, RG-LRU, mLSTM or sLSTM), residual;
+    with an encoder (whisper), norm, cross attention to the encoder's
+    output, residual; then norm, FFN (an MLP or a mixture of experts),
+    residual when ``d_ff > 0``."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, device=None):
+    def __init__(self, cfg: ModelConfig, kind: str, device=None,
+                 index: int = 0):
         super().__init__()
         self.cfg, self.kind = cfg, kind
+        self.routed = cfg.routed(index)
         self.norm1 = _norm(cfg, device)
-        self.mix = L.ParamModule(L.attention_params(cfg) if kind in _ATTN
-                                 else _RECURRENT[kind][0](cfg), device)
+        if kind == "mla":
+            self.mix = L.MLA(cfg, device)
+        else:
+            self.mix = L.ParamModule(L.attention_params(cfg) if kind in _ATTN
+                                     else _RECURRENT[kind][0](cfg), device)
         if cfg.encoder_layers:
             self.norm_x = _norm(cfg, device)
             self.cross = L.ParamModule(L.attention_params(cfg), device)
         if cfg.d_ff > 0:
             self.norm2 = _norm(cfg, device)
-            self.ffn = (M.MoE(cfg, device) if cfg.moe is not None
-                        else L.ParamModule(L.mlp_params(cfg), device))
+            self.ffn = (M.MoE(cfg, device) if self.routed
+                        else L.ParamModule(L.mlp_params(cfg, cfg.dense_d_ff),
+                                           device))
 
     def forward(self, x, *, enc_out=None, cache=None, decode: bool = False,
                 collect_kv: bool = False):
@@ -126,7 +140,19 @@ class Block(nn.Module):
         cfg = self.cfg
         h = L.rmsnorm(self.norm1, x, cfg.norm_eps)
         new_cache = None
-        if self.kind in _ATTN:
+        if self.kind == "mla":
+            span = get_recorder().span
+            if decode:
+                with span("attn.decode"):
+                    mixed, mla = L.mla_decode(self.mix, h, cache["mla"], cfg)
+                new_cache = dict(cache, mla=mla)
+            else:
+                with span("attn.prefill"):
+                    mixed = L.mla_forward(self.mix, h, cfg,
+                                          return_kv=collect_kv)
+                if collect_kv:
+                    mixed, new_cache = mixed
+        elif self.kind in _ATTN:
             span = get_recorder().span
             if decode:
                 with span("attn.decode"):
@@ -158,7 +184,7 @@ class Block(nn.Module):
         aux = None
         if cfg.d_ff > 0:
             h = L.rmsnorm(self.norm2, x, cfg.norm_eps)
-            if cfg.moe is not None:
+            if self.routed:
                 f, aux = M.moe_forward(self.ffn, h, cfg)
             else:
                 f = L.mlp_forward(self.ffn, h, cfg)
@@ -218,7 +244,7 @@ class Model(L.ParamModule):
         self.cfg = cfg
         self.final_norm = _norm(cfg, device)
         self.layers = nn.ModuleList(
-            Block(cfg, cfg.block_pattern[i % cfg.pattern_len], device)
+            Block(cfg, cfg.block_pattern[i % cfg.pattern_len], device, i)
             for i in range(cfg.num_layers))
         if cfg.encoder_layers:
             self.encoder = nn.Module()
@@ -274,9 +300,11 @@ class Model(L.ParamModule):
         ``"hidden"``; logits are float32. ``aux`` is the MoE
         load-balancing loss summed over the layers (0 without experts),
         float32. ``kvs`` holds one entry per layer: the (k, v) of an
-        attention block, each (B, K, S, hd), and None for a recurrent
+        attention block, each (B, K, S, hd), the (c, k_pe) of a latent
+        one, (B, 1, S, r) and (B, 1, S, rope), and None for a recurrent
         block, whose decode state the serving loop builds by
-        teacher-forced steps.
+        teacher-forced steps. :meth:`fill_cache` writes them into
+        :meth:`init_cache`'s caches.
 
         ``remat``, as in ``repro``, when a graph is built: ``"full"``
         checkpoints each super-block (one repeat of the block pattern)
@@ -357,11 +385,12 @@ class Model(L.ParamModule):
                    enc_out: torch.Tensor | None = None) -> list[dict]:
         """Per-layer decode caches: a KV ring buffer of ``max_len`` slots
         (``min(max_len, local_window)`` for a local block) in
-        ``cfg.kv_dtype``, or a recurrent block's state (the RG-LRU's conv
-        tail and h; the mLSTM's C, n, m; the sLSTM's c, n, m, h). With an
-        encoder and ``enc_out`` (B, Senc, d), each layer also gets the
-        cross K/V, (B, K, Senc, hd) bfloat16 zeros, as ``repro``'s
-        placeholder (R10)."""
+        ``cfg.kv_dtype``, a latent ring (``"mla"``: the normed latent and
+        the RoPE key) for a latent block, or a recurrent block's state
+        (the RG-LRU's conv tail and h; the mLSTM's C, n, m; the sLSTM's
+        c, n, m, h). With an encoder and ``enc_out`` (B, Senc, d), each
+        layer also gets the cross K/V, (B, K, Senc, hd) bfloat16 zeros,
+        as ``repro``'s placeholder (R10)."""
         cfg, dev = self.cfg, self.device
         caches = []
         for layer in self.layers:
@@ -370,6 +399,10 @@ class Model(L.ParamModule):
                         if layer.kind == "local" else max_len)
                 c = {"attn": L.attention_cache_init(
                     cfg, batch, size, dtype=getattr(torch, cfg.kv_dtype),
+                    device=dev)}
+            elif layer.kind == "mla":
+                c = {"mla": L.mla_cache_init(
+                    cfg, batch, max_len, dtype=getattr(torch, cfg.kv_dtype),
                     device=dev)}
             else:
                 c = {"rec": _RECURRENT[layer.kind][2](cfg, batch, dev)}
@@ -382,6 +415,35 @@ class Model(L.ParamModule):
             caches.append(c)
         return caches
 
+    @torch.no_grad()
+    def fill_cache(self, caches: list[dict], kvs: list,
+                   rows: slice = slice(None)) -> list[dict]:
+        """Write a prefill's cache entries (``kvs`` of ``forward(...,
+        return_kv=True)``, over S positions) into rows ``rows`` of the
+        caches of :meth:`init_cache`, in place, and set each written
+        cache's length to S: an attention block's (k, v), a latent
+        block's (c, k_pe), position p into slot p mod the ring's size
+        (a ring shorter than S keeps the last positions). A recurrent
+        block hands out None and is left as it is."""
+        for cache, kv in zip(caches, kvs):
+            if kv is None:
+                continue
+            key, names = (("mla", ("c", "k_pe")) if "mla" in cache
+                          else ("attn", ("k", "v")))
+            ring = cache[key]
+            S = kv[0].shape[2]
+            for name, t in zip(names, kv):
+                dst = ring[name][rows]
+                size = dst.shape[2]
+                if S <= size:
+                    dst[:, :, :S].copy_(t)
+                else:
+                    at = torch.arange(S - size, S, device=dst.device)
+                    dst.index_copy_(2, at % size, t[:, :, S - size:]
+                                    .to(dst.dtype))
+            ring["len"] = S
+        return caches
+
     def decode_step(self, tokens: torch.Tensor, caches: list[dict]):
         """One decode step. tokens: (B, 1) -> (logits (B, 1, V) float32,
         new caches). KV caches are updated in place."""
@@ -389,7 +451,8 @@ class Model(L.ParamModule):
         with rec.span("model.decode_step") as sp:
             if rec.enabled:
                 sp.set(batch=tokens.shape[0], cache_len=next(
-                    (c["attn"]["len"] for c in caches if "attn" in c), None))
+                    (c[k]["len"] for c in caches for k in ("attn", "mla")
+                     if k in c), None))
             x = self._embed(tokens)
             new = []
             for layer, cache in zip(self.layers, caches):

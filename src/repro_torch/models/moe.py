@@ -6,8 +6,11 @@ The port of ``repro/models/moe.py``, with its semantics kept exactly:
   of S not above ``cfg.moe.group_size``. Each expert takes at most
   ``c = _capacity(cfg)`` (token, slot) pairs of a group, in token order
   then slot order; the rest are dropped and the surviving gates of a
-  token renormalized. ``c`` is computed from ``group_size``, not from
-  ``g``: a one-token decode step gets the same ``c`` and drops nothing.
+  token renormalized (``cfg.norm_topk_prob``, ``repro``'s rule; with
+  it False, as DeepSeek-V2 states, the kept gates are the router's
+  probabilities, 0 where dropped). ``c`` is computed from
+  ``group_size``, not from ``g``: a one-token decode step gets the same
+  ``c`` and drops nothing.
 - The router runs in float32; its top-k breaks ties toward the lower
   expert index, as ``jax.lax.top_k`` does (a stable sort, not
   ``torch.topk``, which promises no order among equal values).
@@ -63,13 +66,14 @@ The gradients follow the same placements: a weight's gradient is a
 partial sum over the ``batch`` axes, and the gradient of the tokens and
 the gates a partial sum over the axes that split the experts.
 
-Under ``obs.tracing()`` the layer records four spans, one per step:
+Under ``obs.tracing()`` the layer records a span per step:
 ``moe.route`` (the decisions), ``moe.dispatch`` (the slots' tokens),
-``moe.experts`` (the two products) and ``moe.combine`` (the gate-sum and
-the cast), and two counts that say how full the slots are: the device
-tally ``moe.pairs_kept``, the (token, expert) pairs this rank's
-decisions keep, and the counter ``moe.slots``, the slots its experts'
-products run on, ``B · E_l · n · c``. The tally adds two small kernels
+``moe.experts`` (the two products), ``moe.combine`` (the gate-sum and
+the cast) and ``moe.shared`` (the shared expert, where there is one,
+an MLP of ``cfg.shared_d_ff``), and two counts that say how full the
+slots are: the device tally ``moe.pairs_kept``, the (token, expert)
+pairs this rank's decisions keep, and the counter ``moe.slots``, the
+slots its experts' products run on, ``B · E_l · n · c``. The tally adds two small kernels
 a layer, under ``moe.route``, and only while tracing.
 """
 from __future__ import annotations
@@ -112,7 +116,8 @@ class MoE(L.ParamModule):
         super().__init__(router, device)
         self.experts = L.ParamModule(experts, device)
         if cfg.moe.shared_expert:
-            self.shared = L.ParamModule(L.mlp_params(cfg), device)
+            self.shared = L.ParamModule(
+                L.mlp_params(cfg, cfg.shared_d_ff), device)
 
 
 def _capacity(cfg: ModelConfig) -> int:
@@ -142,8 +147,8 @@ def route(p, xg: torch.Tensor, cfg: ModelConfig):
     """The routing decisions of groups ``xg`` (..., g, d): ``probs``
     (..., g, E) float32, ``expert_idx`` (..., g, k), ``pos`` (..., g, k)
     each pair's place in its expert's queue, ``keep`` (..., g, k) ``pos <
-    c``, and the renormalized ``gates`` (..., g, k) float32 (0 where
-    dropped)."""
+    c``, and the ``gates`` (..., g, k) float32 (0 where dropped),
+    renormalized unless ``norm_topk_prob`` is False."""
     m = cfg.moe
     E, k, c = m.num_experts, m.experts_per_token, _capacity(cfg)
     *lead, g, _ = xg.shape
@@ -157,7 +162,8 @@ def route(p, xg: torch.Tensor, cfg: ModelConfig):
     pos = ((flat.cumsum(-2) - flat) * flat).sum(-1).reshape(*lead, g, k)
     keep = pos < c
     gates = gates * keep
-    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    if cfg.norm_topk_prob:
+        gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     return probs, expert_idx, pos, keep, gates
 
 
@@ -269,8 +275,9 @@ def _combine(eout, expert_idx, pos, keep, gates, *, cfg: ModelConfig,
            + pos.clamp_max(c - 1))
     picked = eout[torch.arange(B, device=dev)[None, :, None, None],
                   (expert_idx - e0).clamp(0, E_l - 1), col].float()
-    picked = picked * own[..., None]                     # (n, B, g, k, d)
-    out = torch.einsum("nbgkd,nbgk->nbgd", picked, gates)
+    # own is 0 or 1: masking the gates masks each pair's product alike,
+    # without a pass over the (n, B, g, k, d) pairs
+    out = torch.einsum("nbgkd,nbgk->nbgd", picked, gates * own)
     return out.transpose(0, 1).reshape(B, n * g, d)
 
 
@@ -415,7 +422,8 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig):
         # the ranks' float32 partial sums added, then cast
         out = lshard(out, "batch", "seq", "embed").to(x.dtype)
     if "shared" in p:
-        out = out + L.mlp_forward(p["shared"], x, cfg)
+        with span("moe.shared"):
+            out = out + L.mlp_forward(p["shared"], x, cfg)
     # load-balance aux per chunk: E * sum_e f_e * P_e / k, f_e before drop
     f_e, P_e = dec[4] / (B * g), dec[5] / (B * g)
     aux = E * (f_e * P_e).sum(-1) / k

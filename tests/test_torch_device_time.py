@@ -13,6 +13,7 @@ SOURCES = {
     "hash_join/csrc/hash_probe.cu": ("probe_kernel",),
     "rglru/csrc/rglru_scan.cu": ("rglru_scan_kernel",),
     "flash_attention/csrc/flash_attention.cu": ("flash_fwd_kernel",
+                                                "flash_mla_kernel",
                                                 "flash_wgmma_kernel"),
     "mlstm/csrc/mlstm_chunkwise.cu": ("mlstm_combine_kernel",
                                       "mlstm_output_kernel",
